@@ -8,21 +8,25 @@ Phases, in order; any failure exits non-zero:
   2. build    nvcc-build the port's CUDA kernels from src/repro_torch/
               kernels/csrc (sm_90a), print the build seconds
   3. kernels  each kernel against its plain PyTorch version on the card,
-              at the main path's shapes and on adversarial inputs. Two
-              times each: `ms`/`plain_ms` are device time from a
-              torch.profiler (CUPTI) trace, the mean over 20 calls after
-              a warm-up call; `call_ms`/`plain_call_ms` are the median
-              of 50 single calls timed by CUDA events after 5 warm-up
-              calls (host dispatch included). Beside them the bound
+              at the main path's shapes and on adversarial inputs
+              (`select_pack` bit for bit). Two times each: `ms`/
+              `plain_ms` are device time from a torch.profiler (CUPTI)
+              trace, the mean over 20 calls after a warm-up call;
+              `call_ms`/`plain_call_ms` are the median of 50 single calls
+              timed by CUDA events after 5 warm-up calls (host dispatch
+              included). Beside them the bound and, where one PyTorch
+              call computes the same function, its time (`library_ms`)
   4. engine   DPMREngine at full width (2^27 features, K=64, batch 4096,
-              adagrad lr 2.0, max_hot 512, a2a): hot set from 4 batches,
-              fit_sgd for 20 steps with the kernel launch counters set to
-              0 just before and read just after, a full-batch fit
-              iteration, a profiled window of 8 steps, evaluate on 3
-              held-out batches (start=1000)
-  5. parity   the same engine at 2^20 features on the card and on the
-              CPU from the same batches; run-to-run bit reproducibility
-              of the card's gradient step
+              adagrad lr 2.0, max_hot 512), twice on the same
+              device-resident batches: `a2a`, then `topk_reduce` at
+              topk_frac 0.05. Each: hot set from 4 batches, fit_sgd for
+              20 steps with the kernel launch counters set to 0 just
+              before and read just after, a full-batch fit iteration, a
+              profiled window of 8 steps, evaluate on 3 held-out batches
+              (start=1000)
+  5. parity   both strategies at 2^20 features on the card and on the CPU
+              from the same batches; run-to-run bit reproducibility of
+              the card's gradient step and of topk_reduce's carry
 Then one `{"kernels": [...]}` line, and last the device line
 `{"ok": true, "device": {...}}`. Measurements also go to
 results/chip_smoke.json.
@@ -42,6 +46,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 LOG2_F, K, BATCH, STEPS = 27, 64, 4096, 20
+TOPK_FRAC = 0.05
 SEED = 0
 
 
@@ -98,15 +103,41 @@ def device_times(torch, fn, iters=20):
     return out
 
 
+def events_ms(torch, fn, iters=50):
+    """Mean ms per call of `iters` back-to-back calls of `fn` between two
+    CUDA events, after one warm-up call. Host gaps between the launches
+    count too, so on a host-bound call this is above the device time."""
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def kernel_and_call_ms(torch, fn, names, iters=50):
     """(device ms of the kernels whose names contain one of `names`, or
-    of all kernels when `names` is empty; ms of one call by CUDA events)."""
-    dev = device_times(torch, fn)
-    ms = sum(v for k, v in dev.items() if not names
-             or any(n in k for n in names))
-    call = time_ms(torch, fn, iters=iters)
-    require(ms > 0, f"the profiler saw no device time for {names}")
-    return ms, call
+    of all kernels when `names` is empty; ms of one call by CUDA events).
+
+    A profiler trace that shows none of those kernels is taken again, up
+    to 3 traces in all (on the H100 one trace in a run has come back
+    without the kernels it timed); after that the device ms is
+    `events_ms`, and the log says so."""
+    for _ in range(3):
+        dev = device_times(torch, fn)
+        ms = sum(v for k, v in dev.items() if not names
+                 or any(n in k for n in names))
+        if ms > 0:
+            break
+    else:
+        ms = events_ms(torch, fn, iters)
+        log(f"[timing] 3 profiler traces saw no device time for "
+            f"{names or 'any kernel'}; device ms {ms:.5f} from CUDA events "
+            f"over {iters} back-to-back calls instead")
+    return ms, time_ms(torch, fn, iters=iters)
 
 
 def require(cond, msg):
@@ -306,6 +337,113 @@ def _seg_entries(torch, dev, batch, path_req, results):
         f"one index_add_ ms={oa['library_ms']:.4f}")
 
 
+def _same_bits(torch, a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _select_case(torch, name, send, ids, carry, k):
+    """select_pack against its plain version: all three outputs bit for
+    bit (-0.0 and the order of the packed pairs included)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.select_pack import select_pack
+
+    got = select_pack(send, ids, carry, k)
+    want = ref.select_pack_ref(send, ids, carry, k)
+    torch.cuda.synchronize()
+    ok = all(_same_bits(torch, g, w) for g, w in zip(got, want))
+    err = max(float((g.float() - w.float()).abs().max()) if g.numel()
+              else 0.0 for g, w in zip(got, want))
+    live = int((ids >= 0).sum())
+    log(f"[kernels] select_pack {name}: (P, cap)={tuple(ids.shape)} k={k} "
+        f"live={live} max|d|={err:.3e} bit-exact={ok}")
+    require(ok, f"select_pack disagrees with its plain version on {name}")
+    return err
+
+
+def _select_entries(torch, dev, routing, results):
+    """select_pack at the path's shape, from a real batch's routed send
+    buffer at 2^27, for k at topk_frac 0.05 and 0.25, and on adversarial
+    rows; timed at the path's k against torch.topk of the same key."""
+    from repro_torch.core import sparse
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.select_pack import select_pack
+    from repro_torch.optim import compression
+
+    rng = np.random.default_rng(SEED + 3)
+
+    def tensor(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    ids = routing.req_ids
+    p, cap = ids.shape
+    live = ids >= 0
+    g = tensor(rng.normal(scale=1.0 / BATCH, size=routing.order.numel())
+               .astype(np.float32))
+    send = sparse.combine_grads(routing, g)
+    # a carry from earlier steps: a residual on half the live slots
+    carry = torch.where(live & tensor(rng.random(ids.shape) < 0.5),
+                        tensor(rng.normal(scale=0.5 / BATCH, size=ids.shape)
+                               .astype(np.float32)), 0.0)
+    k = compression.topk_count(cap, TOPK_FRAC)
+    err = _select_case(torch, "path (routed send, frac 0.05)", send, ids,
+                       carry, k)
+    _select_case(torch, "path (routed send, frac 0.25)", send, ids,
+                 carry, compression.topk_count(cap, 0.25))
+
+    def case(p_, cap_, nlive, seed, prefix=True):
+        r = np.random.default_rng(seed)
+        i = np.full((p_, cap_), -1, np.int32)
+        for row in range(p_):
+            at = np.arange(nlive) if prefix else np.sort(
+                r.choice(cap_, size=nlive, replace=False))
+            i[row, at] = r.choice(1 << LOG2_F, size=nlive, replace=False)
+        s_ = np.where(i >= 0, r.normal(size=(p_, cap_)), 0.0)
+        c_ = np.where((i >= 0) & (r.random((p_, cap_)) < 0.5),
+                      r.normal(scale=0.5, size=(p_, cap_)), 0.0)
+        return (tensor(s_.astype(np.float32)), tensor(i),
+                tensor(c_.astype(np.float32)))
+
+    s_, i_, c_ = case(2, 3000, 2500, 1, prefix=False)
+    _select_case(torch, "all keys equal", torch.where(
+        i_ >= 0, 0.5, 0.0), i_, torch.zeros_like(c_), 1000)
+    s_, i_, c_ = case(1, 2048, 2048, 2)
+    sign = tensor(rng.choice([-0.0, 0.0, 1.0, -1.0], size=(1, 2048),
+                             p=[0.3, 0.3, 0.2, 0.2]).astype(np.float32))
+    zeros = tensor(rng.choice([-0.0, 0.0], size=(1, 2048)).astype(
+        np.float32))
+    _select_case(torch, "+-0.0", sign, i_, zeros, 1500)
+    s_, i_, c_ = case(3, 1100, 900, 3, prefix=False)
+    i_[1] = -1
+    _select_case(torch, "an all-dead row", s_, i_, c_, 100)
+    _select_case(torch, "k = 1", s_, i_, c_, 1)
+    _select_case(torch, "k = cap", s_, i_, c_, 1100)
+    _select_case(torch, "3 live < k", *case(2, 1024, 3, 4), 10)
+    _select_case(torch, "P = 8, cap 4104 (> Pallas MAX_CAPACITY)",
+                 *case(8, 4104, 3000, 5), 411)
+    _select_case(torch, "ragged cap 5001", *case(2, 5001, 4000, 6,
+                                                      prefix=False), 2501)
+
+    # bound: read send, ids, carry and write resid (16 B a slot), write
+    # the k (value, id) pairs (8 B each); one f32 add a slot
+    bms, by = bound(16 * p * cap + 8 * p * k, p * cap)
+    entry = results["select_pack"] = {
+        "name": "select_pack", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/select_pack.cu",
+        "replaces": "src/repro/kernels/select_pack.py:89",
+        "launches": None, "max_abs_err": err, "bound_ms": bms,
+        "bound_by": by}
+    _timed(torch, entry, lambda: select_pack(send, ids, carry, k),
+           ("select_pack_",),
+           lambda: ref.select_pack_ref(send, ids, carry, k))
+    key = torch.where(live, (send + carry).abs(), -1.0)
+    entry["library_ms"], entry["library_call_ms"] = kernel_and_call_ms(
+        torch, lambda: torch.topk(key, k, dim=1, sorted=True), ())
+    log(f"[kernels] select_pack at (1, {cap}), k={k}: torch.topk of the key "
+        f"alone device ms={entry['library_ms']:.5f}")
+
+
 def phase_kernels(torch, dev, batch, hot):
     from repro_torch.core import dpmr, hot_sharding, sparse
     from repro_torch.configs import DPMRConfig
@@ -318,22 +456,24 @@ def phase_kernels(torch, dev, batch, hot):
     hot_slot, is_hot, cold_ids = hot_sharding.split_hot(ids, hot)
     routing = sparse.route_build(cold_ids, 1, 1 << LOG2_F, cap)
     _seg_entries(torch, dev, batch, routing.req_ids, results)
+    _select_entries(torch, dev, routing, results)
 
-    # the step's two plain scatter-adds that collide (atomics on the card)
+    # the step's two reduces that collide, now through sorted runs
     g = torch.from_numpy(np.random.default_rng(SEED + 2).normal(
         size=ids.numel()).astype(np.float32)).to(dev)
-    results["scatter"] = {}
+    results["reduces"] = {}
     for name, fn in (
             ("combine_grads", lambda: sparse.combine_grads(routing, g)),
             ("hot_grads", lambda: dpmr.hot_grads(cfg, g, hot_slot, is_hot))):
         outs = [fn() for _ in range(5)]
-        same = all(torch.equal(o, outs[0]) for o in outs)
+        same = all(_same_bits(torch, o, outs[0]) for o in outs)
         ms, call = kernel_and_call_ms(torch, fn, ())
-        results["scatter"][name] = {"ms": ms, "call_ms": call,
+        results["reduces"][name] = {"ms": ms, "call_ms": call,
                                     "bit_reproducible": same}
-        log(f"[kernels] plain {name} at the path's inputs: device ms="
-            f"{ms:.4f}, one call {call:.4f} ms; 5 calls bit-identical="
-            f"{same}")
+        log(f"[kernels] {name} at the path's inputs (sorted runs + "
+            f"segment_sum_sorted): device ms={ms:.4f}, one call "
+            f"{call:.4f} ms; 5 calls bit-identical={same}")
+        require(same, f"{name} is not bit-reproducible on the card")
     for r in results.values():
         if "name" in r:
             log(f"[kernels] {r['name']}: device ms={r['ms']:.5f} "
@@ -346,23 +486,24 @@ def phase_kernels(torch, dev, batch, hot):
     return results
 
 
-def full_width_config():
+def full_width_config(distribution="a2a"):
     from repro_torch import DPMRConfig
 
     return DPMRConfig(num_features=1 << LOG2_F, max_features_per_sample=K,
                       learning_rate=2.0, max_hot=512, optimizer="adagrad",
-                      distribution="a2a")
+                      distribution=distribution, topk_frac=TOPK_FRAC)
 
 
-def phase_engine(torch, dev, results, train, test, hot):
+def run_engine(torch, cfg, dev_train, test, hot):
+    """fit_sgd over `dev_train` (one step per batch) with the launch
+    counters set to 0 just before and read just after; then one fit
+    iteration over 2 batches, a profiled window and evaluate. Returns the
+    measurements and the engine."""
     from repro_torch import DPMREngine
-    from repro_torch.api import put_batch
     from repro_torch.kernels import ops
 
-    eng = DPMREngine(full_width_config(), hot_ids=hot)
-    dev_train = [put_batch(b, dev) for b in train]
+    eng = DPMREngine(cfg, hot_ids=hot)
     torch.cuda.synchronize()
-
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     hist, step_s = [], []
@@ -375,31 +516,31 @@ def phase_engine(torch, dev, results, train, test, hot):
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in hist]
-    log(f"[engine] fit_sgd {STEPS} steps: losses {losses[0]:.4f} -> "
+    tag = f"[engine {cfg.distribution}]"
+    log(f"{tag} fit_sgd {STEPS} steps: losses {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; overflow {sum(h['overflow'] for h in hist)}")
-    log(f"[engine] step time on device-resident batches: median "
+    log(f"{tag} step time on device-resident batches: median "
         f"{statistics.median(step_s) * 1e3:.3f} ms, mean "
         f"{total_s / STEPS * 1e3:.3f} ms, first {step_s[0] * 1e3:.3f} ms; "
         f"{STEPS * BATCH / total_s:.0f} samples/s; "
         f"max_memory_allocated {peak / 2 ** 30:.3f} GiB")
-    log(f"[engine] launches in fit_sgd: {counts}")
+    log(f"{tag} launches in fit_sgd: {counts}")
     require(all(np.isfinite(losses)), "non-finite loss")
     require(np.mean(losses[-5:]) < losses[0], "loss did not fall")
     require(all(h["overflow"] == 0 for h in hist), "capacity overflow")
-    for name in ("sigmoid_grad", "segment_sum_sorted"):
-        require(counts[name] >= STEPS, f"{name} launched {counts[name]} "
-                f"times in {STEPS} steps")
-        results[name]["launches"] = counts[name]
 
+    carry = eng.state.strat.clone()
     ops.reset_launch_counts()
     fit_hist = eng.fit(lambda: iter(dev_train[:2]), iterations=1)
     fit_counts = ops.launch_counts()
-    log(f"[engine] fit 1 iteration over 2 batches: loss "
-        f"{fit_hist[0]['loss']:.4f}; launches {fit_counts}")
+    carry_kept = bool(torch.equal(eng.state.strat, carry))
+    log(f"{tag} fit 1 iteration over 2 batches: loss "
+        f"{fit_hist[0]['loss']:.4f}; launches {fit_counts}; carry "
+        f"unchanged={carry_kept}")
     require(np.isfinite(fit_hist[0]["loss"]), "non-finite fit loss")
-    require(min(fit_counts.values()) >= 2, "fit did not launch the kernels")
+    require(carry_kept, "fit changed the strategy carry")
 
-    prof = profile_steps(torch, eng, dev_train[2:10])
+    prof = profile_steps(torch, eng, dev_train[2:10], cfg.distribution)
 
     t = time.perf_counter()
     metrics = eng.evaluate(test)
@@ -408,7 +549,7 @@ def phase_engine(torch, dev, results, train, test, hot):
                                                                 "vals")})
     require(probs.shape == (1000,) and np.isfinite(probs).all(),
             "bad predict_padded output")
-    log(f"[engine] evaluate 3 held-out batches: f_avg "
+    log(f"{tag} evaluate 3 held-out batches: f_avg "
         f"{metrics['f_avg']:.4f} precision_avg "
         f"{metrics['precision_avg']:.4f} ({eval_s:.2f} s incl. transfer)")
     return {"losses": losses, "step_ms_median": statistics.median(step_s)
@@ -417,10 +558,51 @@ def phase_engine(torch, dev, results, train, test, hot):
             "samples_per_s": STEPS * BATCH / total_s,
             "max_memory_allocated": peak,
             "launches": counts, "fit_launches": fit_counts,
-            "f_avg": metrics["f_avg"], "eval": metrics, "profile": prof}
+            "f_avg": metrics["f_avg"], "eval": metrics, "profile": prof}, eng
 
 
-def profile_steps(torch, eng, batches):
+def phase_engine(torch, dev, results, train, test, hot):
+    from repro_torch.api import put_batch
+
+    dev_train = [put_batch(b, dev) for b in train]
+    kernels = ("sigmoid_grad", "segment_sum_sorted", "select_pack")
+
+    a2a, eng = run_engine(torch, full_width_config("a2a"), dev_train, test,
+                          hot)
+    del eng
+    counts, fit_counts = a2a["launches"], a2a["fit_launches"]
+    # one sigmoid_grad a step; segment_sum_sorted under combine_grads,
+    # hot_grads and owner_accumulate
+    require(counts["sigmoid_grad"] == STEPS
+            and counts["segment_sum_sorted"] == 3 * STEPS
+            and counts["select_pack"] == 0,
+            f"a2a launches {counts} in {STEPS} steps")
+    require(fit_counts["sigmoid_grad"] == 2
+            and fit_counts["segment_sum_sorted"] == 6,
+            f"fit did not launch the kernels: {fit_counts}")
+    for name in kernels[:2]:
+        results[name]["launches"] = counts[name]
+    torch.cuda.empty_cache()
+
+    topk, eng = run_engine(torch, full_width_config("topk_reduce"), dev_train,
+                           test, hot)
+    counts, fit_counts = topk["launches"], topk["fit_launches"]
+    banked = int((eng.state.strat != 0).sum())
+    log(f"[engine topk_reduce] features with a banked residual after "
+        f"{STEPS} steps: {banked}")
+    require(counts["select_pack"] >= STEPS and counts["sigmoid_grad"] == STEPS,
+            f"topk_reduce launches {counts} in {STEPS} steps")
+    require(banked > 0, "the topk_reduce carry stayed zero: no slot lost")
+    require(fit_counts["select_pack"] == 0,
+            f"fit launched select_pack: {fit_counts}")
+    results["select_pack"]["launches"] = counts["select_pack"]
+    topk["banked_features"] = banked
+    del eng
+    torch.cuda.empty_cache()
+    return {"a2a": a2a, "topk_reduce": topk}
+
+
+def profile_steps(torch, eng, batches, tag):
     """Where a train step's time goes: fit_sgd over `batches` twice, first
     untraced for the wall time per step, then under torch.profiler for
     the device busy time per step by kernel. The profiler adds host cost
@@ -445,53 +627,86 @@ def profile_steps(torch, eng, batches):
             by_kernel[evt.key] = us / len(batches) / 1e3
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-    log(f"[profile] {len(batches)} steps: untraced wall {wall_ms:.3f} "
+    log(f"[profile {tag}] {len(batches)} steps: untraced wall {wall_ms:.3f} "
         f"ms/step, traced wall {traced_ms:.3f} ms/step (profiler cost "
         f"included), device busy {busy:.3f} ms/step; idle share "
         f"{1 - busy / wall_ms:.3f} of the untraced wall "
         f"({1 - busy / traced_ms:.3f} of the traced one)")
     for name, ms in top:
-        log(f"[profile]   {ms:8.4f} ms  {name[:110]}")
+        log(f"[profile {tag}]   {ms:8.4f} ms  {name[:110]}")
     return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms, "busy_ms": busy,
             "idle_share": 1 - busy / wall_ms,
             "idle_share_traced": 1 - busy / traced_ms, "top": top}
 
 
+def _same_state(torch, a, b, fields=("cold", "hot", "strat")):
+    return all(_same_bits(torch, getattr(a, f), getattr(b, f))
+               for f in fields)
+
+
 def phase_parity(torch, dev):
+    """Card vs CPU at 2^20 for a2a and topk_reduce, and run-to-run bit
+    reproducibility of the card's gradient step (and of topk_reduce's
+    train step, which writes the carry)."""
     from repro_torch import DPMRConfig, DPMREngine
     from repro_torch.api import hot_ids_from_corpus, put_batch
     from repro_torch.core import dpmr
+    from repro_torch.optim import compression
 
     f = 1 << 20
     spec = dict(num_features=f, features_per_sample=K, signal_features=4096)
     batches = make_batches(spec, 5)
-    cfg = DPMRConfig(num_features=f, max_features_per_sample=K,
-                     learning_rate=2.0, max_hot=512, optimizer="adagrad")
-    hot_cpu = hot_ids_from_corpus(cfg, batches[:4], device="cpu")
-    hot_gpu = hot_ids_from_corpus(cfg, batches[:4], device=dev)
-    require(torch.equal(hot_cpu, hot_gpu.cpu()), "hot sets differ")
-    card = DPMREngine(cfg, device=dev, hot_ids=hot_gpu)
-    cpu = DPMREngine(cfg, device="cpu", hot_ids=hot_cpu)
-    lc = [h["loss"] for h in card.fit_sgd(batches)]
-    lh = [h["loss"] for h in cpu.fit_sgd(batches)]
-    d_loss = max(abs(a - b) for a, b in zip(lc, lh))
-    d_cold = float((card.state.cold.cpu() - cpu.state.cold).abs().max())
-    log(f"[parity] 2^20, 5 steps card vs CPU: max|d loss|={d_loss:.3e} "
-        f"(tol 1e-5), max|d cold|={d_cold:.3e} (tol 1e-4; |cold| up to "
-        f"{float(cpu.state.cold.abs().max()):.2f})")
-    require(d_loss <= 1e-5 and d_cold <= 1e-4, "card and CPU disagree")
+    out = {}
+    for dist in ("a2a", "topk_reduce"):
+        cfg = DPMRConfig(num_features=f, max_features_per_sample=K,
+                         learning_rate=2.0, max_hot=512, optimizer="adagrad",
+                         distribution=dist, topk_frac=TOPK_FRAC)
+        hot_cpu = hot_ids_from_corpus(cfg, batches[:4], device="cpu")
+        hot_gpu = hot_ids_from_corpus(cfg, batches[:4], device=dev)
+        require(torch.equal(hot_cpu, hot_gpu.cpu()), "hot sets differ")
+        card = DPMREngine(cfg, device=dev, hot_ids=hot_gpu)
+        cpu = DPMREngine(cfg, device="cpu", hot_ids=hot_cpu)
+        lc = [h["loss"] for h in card.fit_sgd(batches)]
+        lh = [h["loss"] for h in cpu.fit_sgd(batches)]
+        d_loss = max(abs(a - b) for a, b in zip(lc, lh))
+        d_tab = {name: float((getattr(card.state, name).cpu()
+                              - getattr(cpu.state, name)).abs().max())
+                 for name in ("cold", "hot", "strat")}
+        # a slot that won the top-k race on one side and lost on the other
+        # leaves a residual on one side only
+        flips = int(((card.state.strat.cpu() != 0)
+                     != (cpu.state.strat != 0)).sum())
+        k = compression.topk_count(dpmr.capacity(cfg, BATCH), TOPK_FRAC)
+        log(f"[parity {dist}] 2^20, 5 steps card vs CPU: max|d loss|="
+            f"{d_loss:.3e} (tol 1e-5); max|d table| {d_tab} (tol 1e-4; "
+            f"|cold| up to {float(cpu.state.cold.abs().max()):.2f}); "
+            f"features whose selection differs: {flips} (limit 0.1% of "
+            f"k={k})")
+        require(d_loss <= 1e-5 and max(d_tab.values()) <= 1e-4,
+                f"card and CPU disagree on {dist}")
+        require(flips <= 0.001 * k, f"{flips} selections differ on {dist}")
 
-    fns = dpmr.make_step_fns(cfg, BATCH)
-    b = put_batch(batches[0], dev)
-    outs = [fns.grad_step(card.state, b) for _ in range(5)]
-    same_hot = all(torch.equal(o[1], outs[0][1]) for o in outs)
-    same_cold = all(torch.equal(o[0], outs[0][0]) for o in outs)
-    log(f"[parity] grad_step x5 from one state: hot-gradient index_add_ "
-        f"bit-reproducible={same_hot}; cold gradient bit-reproducible="
-        f"{same_cold}")
-    return {"d_loss": d_loss, "d_cold": d_cold,
-            "hot_grad_reproducible": same_hot,
-            "cold_grad_reproducible": same_cold}
+        fns = dpmr.make_step_fns(cfg, BATCH)
+        b = put_batch(batches[0], dev)
+        grads = [fns.grad_step(card.state, b) for _ in range(5)]
+        same_grad = all(_same_bits(torch, o[0], grads[0][0])
+                        and _same_bits(torch, o[1], grads[0][1])
+                        for o in grads)
+        states = []
+        for _ in range(5):
+            st = dpmr.DPMRState(*(t.clone() for t in card.state))
+            states.append(fns.train_step(st, b)[0])
+        same_step = all(_same_state(torch, st, states[0]) for st in states)
+        log(f"[parity {dist}] grad_step x5 from one state: cold and hot "
+            f"gradients bit-identical={same_grad}; train_step x5 from one "
+            f"state: cold, hot and carry bit-identical={same_step}")
+        require(same_grad and same_step,
+                f"the card's {dist} step is not bit-reproducible")
+        out[dist] = {"d_loss": d_loss, "d_table": d_tab,
+                     "selection_flips": flips,
+                     "grad_step_reproducible": same_grad,
+                     "train_step_reproducible": same_step}
+    return out
 
 
 def main():
@@ -517,13 +732,15 @@ def main():
     engine["batch_gen_s"] = gen_s
     parity = phase_parity(torch, dev)
 
-    kernels = [results["sigmoid_grad"], results["segment_sum_sorted"]]
+    kernels = [results[name] for name in ("sigmoid_grad",
+                                          "segment_sum_sorted",
+                                          "select_pack")]
     out = ROOT / "results"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build_s": build_s, "kernels": kernels,
          "owner_accumulate": results["owner_accumulate"],
-         "scatter": results["scatter"],
+         "reduces": results["reduces"],
          "engine": engine, "parity": parity}, indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))

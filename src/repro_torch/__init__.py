@@ -3,9 +3,11 @@
 The JAX package `repro` is the reference; this package mirrors it module
 for module and never imports it. What it covers today is the single-card
 trainer: `DPMREngine.fit_sgd`, `fit`, `predict` and `evaluate` on the
-`a2a` strategy, whose map body (`sigmoid_grad`) and owner reduce
-(`segment_sum_sorted`) are hand-written CUDA kernels for `sm_90a`
-(`kernels/csrc/`), built with `nvcc` at first use.
+`a2a`, `allgather`, `psum_scatter`, `compressed_reduce` and `topk_reduce`
+strategies. The map body (`sigmoid_grad`), the sorted reduces
+(`segment_sum_sorted`) and topk_reduce's selection (`select_pack`) are
+hand-written CUDA kernels for `sm_90a` (`kernels/csrc/`), built with
+`nvcc` at first use.
 
     from repro_torch import DPMRConfig, DPMREngine, get_source
 """

@@ -9,18 +9,25 @@ from repro_torch.api.engine import (
     put_batch,
 )
 from repro_torch.api.strategies import (
+    AllGatherStrategy,
     AllToAllStrategy,
+    CompressedReduceStrategy,
     DistributionStrategy,
+    PsumScatterStrategy,
     StrategyContext,
+    TopKReduceStrategy,
     get_strategy,
+    list_strategies,
     register_strategy,
 )
 from repro_torch.core.dpmr import DPMRState, StepFns, init_state, make_step_fns
 from repro_torch.data import DataSource, get_source
 
 __all__ = [
-    "AllToAllStrategy", "DPMREngine", "DPMRState", "DataSource",
-    "DistributionStrategy", "StepFns", "StrategyContext",
+    "AllGatherStrategy", "AllToAllStrategy", "CompressedReduceStrategy",
+    "DPMREngine", "DPMRState", "DataSource", "DistributionStrategy",
+    "PsumScatterStrategy", "StepFns", "StrategyContext", "TopKReduceStrategy",
     "binary_prf_metrics", "get_source", "get_strategy", "hot_ids_from_corpus",
-    "init_state", "make_step_fns", "put_batch", "register_strategy",
+    "init_state", "list_strategies", "make_step_fns", "put_batch",
+    "register_strategy",
 ]

@@ -2,10 +2,10 @@
 
 The counterpart of `repro.configs.base.DPMRConfig`: the same frozen
 dataclass, with the same defaults for every field it has. It holds only
-the fields the port reads: the reference's `topk_frac` (a `topk_reduce`
-knob), `kernel_impl` (its lowering knob; the port dispatches by the
-tensor's device) and `seed` come back with the code that reads them, so
-passing one is an error rather than silently ignored. The reference
+the fields the port reads: the reference's `kernel_impl` (its lowering
+knob; the port dispatches by the tensor's device) and `seed` come back
+with the code that reads them, so passing one is an error rather than
+silently ignored. The reference
 module's TPU hardware constants are deliberately not carried over; the
 port's speed figures come from runs on the card (see PERF.md).
 """
@@ -25,8 +25,16 @@ class DPMRConfig:
     learning_rate: float = 0.5
     iterations: int = 4
     distribution: str = "a2a"        # name in the repro_torch.api strategy
-    #                                  registry; the port registers only
-    #                                  "a2a" so far (ROADMAP queue A)
+    #                                  registry (a2a | allgather |
+    #                                  psum_scatter | compressed_reduce |
+    #                                  topk_reduce | user-registered); the
+    #                                  multi-rank ones are ROADMAP queue A
+    topk_frac: float = 0.25          # topk_reduce: fraction of the per-
+    #                                  destination capacity slots whose
+    #                                  largest-|g| gradients go on the wire
+    #                                  (k = ceil(topk_frac * cap)); the rest
+    #                                  feed the error-feedback residual.
+    #                                  1.0 degenerates to the full shuffle.
     grad_scale: str = "mean"         # mean | sum (paper: sum, full-batch GD)
     optimizer: str = "sgd"           # any name in optim.SPARSE_OPTIMIZERS
     adagrad_eps: float = 1e-6

@@ -54,8 +54,9 @@ class DPMRState(NamedTuple):
     cold_acc: torch.Tensor   # (F,) optimizer accumulator, like cold
     hot_acc: torch.Tensor    # (max_hot,) optimizer accumulator
     step: torch.Tensor       # () int32
-    strat: torch.Tensor      # (P,) f32 zeros: the reference's strategy
-    #                          carry, which stateless `a2a` leaves at zero
+    strat: torch.Tensor      # (P*L,) f32 persistent strategy carry: L is
+    #                          the strategy's carry length, 1 (a zero
+    #                          placeholder) for a stateless one
 
 
 def padded_features(cfg: DPMRConfig, num_shards: int = 1) -> int:
@@ -85,7 +86,18 @@ def make_strategy_context(cfg: DPMRConfig, num_shards: int = 1,
     return StrategyContext(
         num_shards=num_shards,
         block_size=padded_features(cfg, num_shards) // num_shards,
-        capacity=cap)
+        capacity=cap, topk_frac=cfg.topk_frac)
+
+
+def strategy_carry_len(cfg: DPMRConfig, num_shards: int = 1) -> int:
+    """Per-rank length L of the strategy's persistent carry (1 when the
+    strategy is stateless: the placeholder keeps the state's layout the
+    same for every strategy)."""
+    from repro_torch.api.strategies import get_strategy
+
+    carry = get_strategy(cfg.distribution).init_carry(
+        make_strategy_context(cfg, num_shards), device="meta")
+    return 1 if carry is None else int(carry.shape[0])
 
 
 def init_state(cfg: DPMRConfig, device, hot_ids=None,
@@ -103,7 +115,7 @@ def init_state(cfg: DPMRConfig, device, hot_ids=None,
     return DPMRState(zeros(f), zeros(cfg.max_hot), hot_ids, zeros(f),
                      zeros(cfg.max_hot),
                      torch.zeros((), dtype=torch.int32, device=device),
-                     zeros(num_shards))
+                     zeros(num_shards * strategy_carry_len(cfg, num_shards)))
 
 
 def optimize(cfg: DPMRConfig, theta, acc, grad, lr):
@@ -136,27 +148,45 @@ def _device_fwd(cfg, strategy, ctx, cold_loc, hot, hot_ids, ids, vals):
     return theta, fwd, aux
 
 
-def _device_grads(cfg, strategy, ctx, cold_loc, grads_slot, fwd, aux):
-    """Reduce stages: per-feature sums delivered to the owner, and the
-    hot-set gradient (summed over ranks: the identity at P = 1)."""
+def _device_grads(cfg, strategy, ctx, cold_loc, grads_slot, fwd, aux,
+                  carry, stateful, accumulating=False):
+    """Reduce stages: per-feature sums delivered to the owner, the
+    hot-set gradient (summed over ranks: the identity at P = 1), and the
+    strategy's new carry.
+
+    `carry` is this rank's slice of `DPMRState.strat`; a stateful strategy
+    gets it as `fwd["carry"]` and returns `(grad_cold, new_carry)`.
+    `accumulating=True` marks the full-batch `grad_step` path, whose
+    caller discards the new carry; it reaches the strategy as
+    `fwd["accumulate"]`, so a lossy strategy takes its exact reduce there
+    and leaves the carry alone."""
     gflat = grads_slot.reshape(-1)
-    grad_cold = strategy.reduce(ctx, cold_loc, gflat, fwd)
-    return grad_cold, hot_grads(cfg, gflat, aux["hot_slot"], aux["is_hot"])
+    if stateful:
+        grad_cold, carry_new = strategy.reduce(
+            ctx, cold_loc, gflat,
+            {**fwd, "carry": carry, "accumulate": accumulating})
+    else:
+        grad_cold = strategy.reduce(ctx, cold_loc, gflat, fwd)
+        carry_new = carry
+    return (grad_cold, hot_grads(cfg, gflat, aux["hot_slot"], aux["is_hot"]),
+            carry_new)
 
 
 def hot_grads(cfg, gflat, hot_slot, is_hot):
-    """(max_hot,) hot-set gradient: a plain scatter-add of the hot slots,
-    the cold ones dropped into one extra slot.
+    """(max_hot,) hot-set gradient: the hot slots' sum per hot slot.
 
-    The Zipf head collides heavily here, and `index_add_` on the card adds
-    in atomic order: on an H100 five gradient steps from one state gave
-    hot gradients that differ in their last bits (chip_smoke.py, parity
-    phase), so the card's hot update is not bit-reproducible run to run.
+    The Zipf head collides heavily here, so the sum is not a scatter-add
+    (on the card `index_add_` adds in atomic order, and the result changes
+    in its last bits from run to run) but `kernels.ops.sorted_run_totals`
+    over the hot slots, the cold ones as padding, and one write of each
+    run total. Every other slot writes into one extra entry that is cut
+    off.
     """
+    slot_s, totals, end = ops.sorted_run_totals(
+        torch.where(is_hot, hot_slot, -1), gflat)
     ghot = torch.zeros((cfg.max_hot + 1,), dtype=torch.float32,
                        device=gflat.device)
-    ghot.index_add_(0, torch.where(is_hot, hot_slot, cfg.max_hot),
-                    torch.where(is_hot, gflat, 0.0))
+    ghot[torch.where(end, slot_s, cfg.max_hot).to(torch.int64)] = totals
     return ghot[:cfg.max_hot]
 
 
@@ -177,7 +207,9 @@ class StepFns(NamedTuple):
     """The DPMR step functions of one batch size, plus their geometry.
 
     `train_step` and `apply_update` update the state passed to them IN
-    PLACE and return it; `grad_step` and `predict` leave it untouched.
+    PLACE and return it (`train_step` writes a stateful strategy's new
+    carry into `state.strat`); `grad_step` and `predict` leave it
+    untouched.
     `ctx` is the `StrategyContext` of these steps: feed it to
     `strategy.bytes_per_device` for the wire model of this geometry.
     """
@@ -211,23 +243,27 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *,
     cap = capacity(cfg, batch_size // p, p, cap_factor)
     strategy = get_strategy(cfg.distribution)
     ctx = make_strategy_context(cfg, p, cap)
+    stateful = strategy.init_carry(ctx, device="meta") is not None
     sched = make_schedule(cfg)
 
-    def _fwd_grads(state, batch):
+    def _fwd_grads(state, batch, accumulating=False):
         ids, vals, labels = batch["ids"], batch["vals"], batch["labels"]
         theta, fwd, aux = _device_fwd(cfg, strategy, ctx, state.cold,
                                       state.hot, state.hot_ids, ids, vals)
         grads_slot, probs, nll = ops.sigmoid_grad(vals, theta, labels)
         if cfg.grad_scale == "mean":
             grads_slot = grads_slot / float(batch_size)
-        grad_cold, grad_hot = _device_grads(cfg, strategy, ctx, state.cold,
-                                            grads_slot, fwd, aux)
-        return grad_cold, grad_hot, _metrics(probs, labels, nll,
-                                             aux["overflow"])
+        grad_cold, grad_hot, carry = _device_grads(
+            cfg, strategy, ctx, state.cold, grads_slot, fwd, aux,
+            state.strat, stateful, accumulating)
+        return grad_cold, grad_hot, carry, _metrics(probs, labels, nll,
+                                                    aux["overflow"])
 
     @torch.no_grad()
     def train_step(state: DPMRState, batch):
-        grad_cold, grad_hot, m = _fwd_grads(state, batch)
+        grad_cold, grad_hot, carry, m = _fwd_grads(state, batch)
+        if carry is not state.strat:    # a strategy may update it in place
+            state.strat.copy_(carry)
         lr = sched(state.step)
         optimize(cfg, state.cold, state.cold_acc, grad_cold, lr)
         optimize(cfg, state.hot, state.hot_acc, grad_hot, lr)
@@ -236,7 +272,11 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *,
 
     @torch.no_grad()
     def grad_step(state: DPMRState, batch):
-        return _fwd_grads(state, batch)
+        # the carry is read-only here: fit() adds many grad_steps into one
+        # update, so error feedback advances through train_step only
+        grad_cold, grad_hot, _, m = _fwd_grads(state, batch,
+                                               accumulating=True)
+        return grad_cold, grad_hot, m
 
     @torch.no_grad()
     def apply_update(state: DPMRState, grad_cold, grad_hot, lr: float):

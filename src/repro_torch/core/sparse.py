@@ -26,6 +26,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import ops
+
 INT32_MAX = 2 ** 31 - 1
 
 
@@ -114,18 +116,28 @@ def combine_grads(routing: Routing, grads_flat: torch.Tensor
     """Combiner: sum per-slot grads by feature -> (P, cap) send buffer.
 
     grads_flat: (n,) in the ORIGINAL slot layout. Output aligns with the
-    request matrix (owner, capacity-slot). Duplicates of a feature collide
-    on one slot, so on the card this `index_add_` adds in atomic order:
-    on an H100 the cold gradient of five steps from one state differed in
-    its last bits (chip_smoke.py, parity phase).
+    request matrix (owner, capacity-slot). The sums run through the
+    routing's sorted order, where each feature's slots are one run:
+    `kernels.ops.segment_sum_sorted` (the kernel on the card) totals each
+    run at its last slot, and each kept run's total is written once into
+    its own (owner, capacity-slot) entry. No entry is written twice, so
+    the result is bit-reproducible on the card.
+
+    The run id of a sorted slot is its run start's sorted index; padding
+    (owner P) is -1 and already sorts last. Slots of overflowed runs keep
+    their run ids (at P > 1 they lie mid-array) and add 0.
     """
     p, cap = routing.req_ids.shape
+    run = torch.where(routing.owner_s == p, -1, routing.start_idx_s)
     g_sorted = torch.where(routing.keep_s, grads_flat[routing.order], 0.0)
-    flat = torch.where(routing.keep_s, routing.owner_s * cap + routing.pos_s,
-                       p * cap)
+    totals = ops.segment_sum_sorted(run.contiguous(), g_sorted.contiguous())
+    last = torch.cat([run[1:] != run[:-1],
+                      torch.ones((1,), dtype=torch.bool, device=run.device)])
+    put = routing.keep_s & last
+    flat = torch.where(put, routing.owner_s * cap + routing.pos_s, p * cap)
     send = torch.zeros(((p + 1) * cap,), dtype=grads_flat.dtype,
                        device=grads_flat.device)
-    send.index_add_(0, flat, g_sorted)
+    send[flat.to(torch.int64)] = totals
     return send[:p * cap].view(p, cap)
 
 

@@ -6,7 +6,9 @@ Layout:
                       parity oracle of every kernel
   sigmoid_grad.py     wrapper of csrc/sigmoid_grad.cu (computeGradients)
   segment_sum.py      wrapper of csrc/segment_sum.cu (sorted run totals,
-                      behind ops.owner_accumulate)
+                      behind ops.owner_accumulate and the combiner)
+  select_pack.py      wrapper of csrc/select_pack.cu (topk_reduce's
+                      per-row top-k select + pack)
   build.py            nvcc build of csrc/*.cu for sm_90a at first use,
                       loaded with ctypes
 """

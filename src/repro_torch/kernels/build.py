@@ -109,6 +109,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_segment_sum_tile_size.restype = i
     lib.repro_segment_sum_sorted_f32.argtypes = [p, p, p, p, p, p, ll, p]
     lib.repro_segment_sum_sorted_f32.restype = i
+    lib.repro_select_pack_tile_size.argtypes = []
+    lib.repro_select_pack_tile_size.restype = i
+    lib.repro_select_pack_radix.argtypes = []
+    lib.repro_select_pack_radix.restype = i
+    lib.repro_select_pack_f32.argtypes = [p] * 12 + [i, i, i, p]
+    lib.repro_select_pack_f32.restype = i
     return lib
 
 

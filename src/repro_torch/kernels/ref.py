@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels.
 
-Counterparts of `repro.kernels.ref.sigmoid_grad_ref` and
-`segment_sum_sorted_ref`. Each is the function its CUDA kernel computes,
+Counterparts of `repro.kernels.ref.sigmoid_grad_ref`,
+`segment_sum_sorted_ref` and `select_pack_ref`. Each is the function its CUDA kernel computes,
 written as ordinary tensor code: the wrappers in this package run it when
 they are handed CPU tensors, the CPU tests hold it against the JAX
 package, and `chip_smoke.py` holds each kernel against it on the card.
@@ -9,6 +9,8 @@ package, and `chip_smoke.py` holds each kernel against it on the card.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.optim import compression
 
 
 def log_sigmoid(z: torch.Tensor) -> torch.Tensor:
@@ -56,3 +58,29 @@ def segment_sum_sorted_ref(ids, grads):
     sums = torch.zeros((n,), dtype=torch.float32, device=ids.device)
     sums.index_add_(0, seg, g)
     return torch.where(is_end, sums[seg], 0.0)
+
+
+def select_pack_ref(send, ids, carry_slots, k: int):
+    """The `topk_reduce` compensate + select + pack chain.
+
+    send, carry_slots: (P, cap) f32; ids: (P, cap) int32, negative = an
+    empty slot; k from `optim.compression.topk_count`. Per row:
+
+        comp  = send + carry on live slots, 0 on dead ones
+        rank  = |comp| descending, ties by position, dead slots last
+        ids_k, vals_k = the first k (id, comp) pairs in rank order
+                        (vals_k = 0 where ids_k is dead)
+        resid = 0 for live winners, comp for every other slot
+
+    Returns (vals_k (P, k) f32, ids_k (P, k) int32, resid (P, cap) f32).
+    The ranking is a stable descending sort of the key
+    (`compression.topk_select`), which is `lax.top_k`'s order.
+    """
+    valid = ids >= 0
+    comp = torch.where(valid, send + carry_slots, 0.0)
+    key = torch.where(valid, torch.abs(comp), -1.0)
+    top_idx, top_mask = compression.topk_select(key, k)
+    ids_k = torch.gather(ids, 1, top_idx)
+    vals_k = torch.where(ids_k >= 0, torch.gather(comp, 1, top_idx), 0.0)
+    resid = torch.where(top_mask & valid, 0.0, comp)
+    return vals_k, ids_k, resid

@@ -47,7 +47,7 @@ def test_engine_without_device_needs_a_card():
     assert eng.state.cold.device.type == "cpu"
 
 
-@pytest.mark.parametrize("dist", ["psum_scatter", "topk_reduce", "auto",
+@pytest.mark.parametrize("dist", ["overlap_a2a", "hier_a2a", "auto",
                                   "no_such_strategy"])
 def test_other_distributions_raise(dist):
     from repro_torch import DPMRConfig, DPMREngine
@@ -60,9 +60,17 @@ def test_other_distributions_raise(dist):
 @pytest.mark.parametrize("field", ["kernel_impl", "topk_frac", "seed"])
 def test_config_has_no_field_the_port_ignores(field):
     """The reference's fields that nothing in the port reads are absent, so
-    passing one fails instead of being silently ignored."""
+    passing one fails instead of being silently ignored; `topk_frac` is
+    read by topk_reduce and reaches the steps' strategy context."""
     from repro_torch import DPMRConfig
 
+    if field == "topk_frac":
+        from repro_torch.core import dpmr
+
+        fns = dpmr.make_step_fns(DPMRConfig(num_features=64, topk_frac=0.05),
+                                 8)
+        assert fns.ctx.topk_frac == 0.05
+        return
     with pytest.raises(TypeError, match=field):
         DPMRConfig(**{field: 0})
 
@@ -89,7 +97,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     """The wrappers' checks run before any build or launch."""
-    from repro_torch.kernels import segment_sum, sigmoid_grad
+    from repro_torch.kernels import segment_sum, select_pack, sigmoid_grad
 
     meta = torch.empty((4, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -98,3 +106,6 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         segment_sum._check(torch.empty((4,), dtype=torch.int32,
                                        device="meta"),
                            torch.empty((4,), device="meta"))
+    ids = torch.empty((2, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        select_pack._check(meta[:2], ids, meta[:2], 3)

@@ -4,8 +4,9 @@ On the CPU the port's wrappers take their plain PyTorch versions
 (`repro_torch.kernels.ref`); these are held against the JAX kernels run
 in interpret mode, on the same numpy inputs. f32 sums are taken in
 another order in the two packages, so values agree to atol=1e-5 and
-integer-valued sums bit for bit. The CUDA kernels are held against the
-plain versions on the card by tests/test_torch_cuda.py.
+integer-valued sums bit for bit. `select_pack` moves values and adds once, so its
+plain version equals the Pallas kernel bit for bit. The CUDA kernels are
+held against the plain versions on the card by tests/test_torch_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 
 ATOL = 1e-5
@@ -73,8 +75,13 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ids = torch.tensor([0, 0, 3, -1], dtype=torch.int32)
     assert torch.equal(ops.segment_sum_sorted(ids, torch.ones(4)),
                        torch.tensor([0.0, 2.0, 1.0, 0.0]))
+    send = torch.tensor([[1.0, -3.0, 2.0]])
+    got = ops.select_pack(send, torch.tensor([[4, 5, -1]], dtype=torch.int32),
+                          torch.zeros((1, 3)), 1)
+    assert got[1].tolist() == [[5]] and got[0].tolist() == [[-3.0]]
     assert ops.launch_counts() == {"sigmoid_grad": 0,
-                                   "segment_sum_sorted": 0}
+                                   "segment_sum_sorted": 0,
+                                   "select_pack": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -203,3 +210,112 @@ def test_owner_accumulate_matches_plain_scatter():
     want = sparse.owner_accumulate(ids_t, g_t, torch.zeros(48), 8)
     got = ops.owner_accumulate(ids_t, g_t, torch.zeros(48), 8)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# select_pack
+# ---------------------------------------------------------------------------
+
+
+def _select_pack_case(p, cap, seed, live_frac=0.8):
+    """The JAX package's select_pack inputs (tests/test_kernels.py)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 4 * cap, size=(p, cap)).astype(np.int32)
+    dead = rng.random(size=(p, cap)) > live_frac
+    ids = np.where(dead, -1, ids)
+    send = np.where(ids >= 0, rng.normal(size=(p, cap)), 0.0).astype(
+        np.float32)
+    carry = np.where(ids >= 0, rng.normal(size=(p, cap)), 0.0).astype(
+        np.float32)
+    return send, ids, carry
+
+
+def _edge_rows():
+    send, ids, carry = _select_pack_case(4, 16, seed=0)
+    ids[1] = -1                                   # row 1 fully dead
+    ids[2, 3:] = -1                               # row 2: 3 live < k
+    return (np.where(ids >= 0, send, 0.0).astype(np.float32), ids,
+            np.where(ids >= 0, carry, 0.0).astype(np.float32))
+
+
+def _tie_break():
+    ids = np.arange(12, dtype=np.int32).reshape(1, 12)
+    send = np.full((1, 12), 0.5, np.float32)
+    send[0, 7] = -0.5                             # same |.|, negative
+    return send, ids, np.zeros((1, 12), np.float32)
+
+
+def _signed_zeros():
+    """+0.0 and -0.0 compensated values tie with each other and with dead
+    slots' 0 only by position; a live -0.0 keeps its sign."""
+    ids = np.asarray([[3, -1, 9, 4, 7, -1, 2, 8]], np.int32)
+    send = np.asarray([[0.0, 0.0, -0.0, 1.0, -0.0, 0.0, 0.0, -2.0]],
+                      np.float32)
+    carry = np.asarray([[-0.0, 0.0, -0.0, 0.0, 0.0, 0.0, -0.0, 0.0]],
+                       np.float32)
+    return send, ids, carry
+
+
+SELECT_PACK_CASES = {
+    # every case of tests/test_kernels.py, against the Pallas kernel
+    **{f"sweep-{p}x{cap}-k{k}": (lambda p=p, cap=cap, k=k: (
+        *_select_pack_case(p, cap, seed=p * 1000 + cap + k), k))
+       for p, cap, k in [(1, 8, 2), (4, 64, 16), (3, 33, 7), (8, 128, 128),
+                         (2, 16, 1), (5, 40, 39)]},
+    "edge-rows": lambda: (*_edge_rows(), 8),
+    "tie-break": lambda: (*_tie_break(), 4),
+    "signed-zeros": lambda: (*_signed_zeros(), 5),
+}
+
+
+def _bits(x):
+    x = np.asarray(x)
+    return x.view(np.int32) if x.dtype == np.float32 else x
+
+
+@pytest.mark.parametrize("case", sorted(SELECT_PACK_CASES))
+def test_select_pack_matches_pallas_bit_exact(case):
+    """All three outputs, the order of the packed pairs included, equal the
+    Pallas kernel's (interpret mode) and the JAX chain's bit for bit."""
+    send, ids, carry, k = SELECT_PACK_CASES[case]()
+    got = ops.select_pack(torch.from_numpy(send), torch.from_numpy(ids),
+                          torch.from_numpy(carry), k)
+    want = jops.select_pack(jnp.asarray(send), jnp.asarray(ids),
+                            jnp.asarray(carry), k=k, impl="pallas_interpret")
+    chain = jref.select_pack_ref(jnp.asarray(send), jnp.asarray(ids),
+                                 jnp.asarray(carry), k=k)
+    for g, w, c in zip(got, want, chain, strict=True):
+        assert g.numpy().dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(c))
+
+
+def test_select_pack_above_pallas_capacity():
+    """cap 4,104 is above the Pallas kernel's MAX_CAPACITY, where the JAX
+    seam runs its XLA chain; the port has no capacity bound."""
+    from repro.kernels import select_pack as jsp
+
+    p, cap, k = 8, jsp.MAX_CAPACITY + 8, 205
+    send, ids, carry = _select_pack_case(p, cap, seed=11)
+    got = ops.select_pack(torch.from_numpy(send), torch.from_numpy(ids),
+                          torch.from_numpy(carry), k)
+    want = jref.select_pack_ref(jnp.asarray(send), jnp.asarray(ids),
+                                jnp.asarray(carry), k=k)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(w))
+
+
+def test_select_pack_edge_rows_semantics():
+    """Dead picks carry id -1 and value 0; a row with <= k live slots
+    sends them all and banks nothing; k = cap ranks every slot."""
+    send, ids, carry = _edge_rows()
+    vals_k, ids_k, resid = ops.select_pack(
+        torch.from_numpy(send), torch.from_numpy(ids),
+        torch.from_numpy(carry), 8)
+    assert (ids_k[1] == -1).all() and (vals_k[1] == 0).all()
+    assert (resid[2] == 0).all() and (ids_k[2, 3:] == -1).all()
+    vals_k, ids_k, resid = ops.select_pack(
+        torch.from_numpy(send), torch.from_numpy(ids),
+        torch.from_numpy(carry), 16)
+    assert not resid.any()
+    assert sorted(ids_k[0].tolist()) == sorted(ids[0].tolist())
