@@ -27,6 +27,22 @@ Phases, in order; any failure exits non-zero:
   5. parity   both strategies at 2^20 features on the card and on the CPU
               from the same batches; run-to-run bit reproducibility of
               the card's gradient step and of topk_reduce's carry
+  6. attention  yi-6b at full width (32 layers, bf16) built on the card
+              from a torch.Generator seeded 0; `flash_attention` against
+              its plain version on layer 0's q, k, v of a (1, 4096)
+              prefill, and on adversarial shapes (D = 64, MHA, MQA with
+              group 48, ragged S, Sq < Skv, full attention, Sq = 1);
+              timed at the serve path's (8, 4096) with its plain version
+              and scaled_dot_product_attention as the yardstick
+  7. serve    greedy_decode of yi-6b, batch 8 x prompt 4096 (numpy seed
+              0), 32 steps, with the launch counters set to 0 just before
+              and read just after (flash_attention: 32, all in prefill);
+              then prefill and each decode step timed alone, a profiled
+              prefill and a profiled window of decode steps
+  8. dense parity  yi-6b at full width with 2 layers, weights from a CPU
+              generator copied to the card: prefill (2 x 256) and 4
+              decode steps on the card and on the CPU; the card's prefill
+              again with the plain attention put in the kernel's place
 Then one `{"kernels": [...]}` line, and last the device line
 `{"ok": true, "device": {...}}`. Measurements also go to
 results/chip_smoke.json.
@@ -45,19 +61,24 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_TC_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 LOG2_F, K, BATCH, STEPS = 27, 64, 4096, 20
 TOPK_FRAC = 0.05
 SEED = 0
+ARCH = "yi-6b"
+SERVE_BATCH, PROMPT, DECODE_STEPS = 8, 4096, 32
+ATTN_TOL = 2e-2                # the reference's bf16 attention tolerance
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def bound(nbytes, nflops):
+def bound(nbytes, nflops, peak_flops=F32_FLOPS):
     """Least time in ms for the work: the larger of its bytes over the
-    memory rate and its f32 operations over the f32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nflops / F32_FLOPS
+    memory rate and its operations over the peak rate for their type
+    (f32 outside the tensor cores unless `peak_flops` says otherwise)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nflops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                         else "operations")
 
@@ -709,6 +730,343 @@ def phase_parity(torch, dev):
     return out
 
 
+def yi_model(torch, dev, num_layers=None, generator=None):
+    """yi-6b at full width (bf16 matrices, f32 norm scales), optionally cut
+    to `num_layers`, with weights from `generator` (default: one on `dev`
+    seeded SEED)."""
+    import dataclasses
+
+    from repro_torch.models import common, registry
+
+    spec = registry.get_spec(ARCH)
+    cfg = spec.cfg if num_layers is None else dataclasses.replace(
+        spec.cfg, num_layers=num_layers)
+    gen = generator or torch.Generator(device=dev).manual_seed(SEED)
+    model = common.init_params(spec.model(cfg, device=gen.device), gen)
+    return spec, cfg, model
+
+
+def prompts(cfg, batch, length):
+    return np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(batch, length)).astype(np.int32)
+
+
+def layer0_qkv(torch, model, cfg, tokens):
+    """Layer 0's q, k, v of a prefill of `tokens`, as prefill makes them
+    (RMS norm, projections, RoPE)."""
+    from repro_torch.models import common, layers
+
+    with torch.inference_mode():
+        x = common.embed_tokens(model.embed, tokens, cfg)
+        lp = model.layers[0]
+        h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
+        q = layers.project_q(lp.attn, h, cfg)
+        k, v = layers.project_kv(lp.attn, h, cfg)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        sin, cos = layers.rope_tables(pos, cfg.resolved_head_dim,
+                                      cfg.rope_theta)
+        return layers.apply_rope(q, sin, cos), layers.apply_rope(
+            k, sin, cos), v
+
+
+def attn_work(q, k, causal):
+    """(bytes, flops) of one attention call: q, k, v read once and the
+    output written once; 4 D flops per visible (query, key) pair per head
+    (q.k and p.v), counting only the pairs the mask lets through."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if causal:
+        shift = skv - sq
+        pairs = sum(min(i + shift + 1, skv) for i in range(sq))
+    else:
+        pairs = sq * skv
+    nbytes = 2 * (2 * b * sq * h * d + 2 * b * skv * kh * d)
+    return nbytes, 4 * d * pairs * b * h
+
+
+def _attn_case(torch, name, q, k, v, causal):
+    """flash_attention against its plain version: max |d| and the stated
+    tolerance, |d| <= ATTN_TOL * (1 + |plain|), on bf16 outputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    got = flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs()
+    err = float(d.max())
+    ok = bool((d <= ATTN_TOL * (1 + want.float().abs())).all()) \
+        and bool(torch.isfinite(got).all())
+    log(f"[kernels] flash_attention {name}: q {tuple(q.shape)} kv "
+        f"{tuple(k.shape)} causal={causal} max|d|={err:.3e} (tol "
+        f"{ATTN_TOL} * (1 + |plain|), bf16 probabilities against f32) "
+        f"ok={ok}")
+    require(ok, f"flash_attention disagrees with its plain version on {name}")
+    return err
+
+
+def phase_attention(torch, dev, model, cfg, results):
+    """flash_attention on the card at the serve path's shape and on
+    adversarial shapes; timed at (8, 4096)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    tokens = torch.from_numpy(prompts(cfg, SERVE_BATCH, PROMPT)).to(dev)
+    q, k, v = layer0_qkv(torch, model, cfg, tokens[:1])
+    err = _attn_case(torch, "path (yi-6b layer 0, batch 1)", q, k, v, True)
+    rng = np.random.default_rng(SEED + 4)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+    for name, (b, sq, skv, h, kh, d, causal) in {
+            "D = 64": (2, 1024, 1024, 16, 4, 64, True),
+            "MHA (KH = H)": (2, 512, 512, 8, 8, 128, True),
+            "MQA group 48 (granite-34b)": (1, 1024, 1024, 48, 1, 128, True),
+            "ragged S = 1000": (2, 1000, 1000, 32, 4, 128, True),
+            "Sq < Skv": (2, 300, 1000, 32, 4, 128, True),
+            "causal=False": (2, 1000, 1000, 32, 4, 128, False),
+            "Sq = 1": (4, 1, 4097, 32, 4, 128, True)}.items():
+        _attn_case(torch, name, rand(b, sq, h, d), rand(b, skv, kh, d),
+                   rand(b, skv, kh, d), causal)
+
+    # the serve path's shape: q (8, 4096, 32, 128), kv (8, 4096, 4, 128)
+    q, k, v = layer0_qkv(torch, model, cfg, tokens)
+    nbytes, nflops = attn_work(q, k, True)
+    bms, by = bound(nbytes, nflops, BF16_TC_FLOPS)
+    entry = results["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "launches": None, "max_abs_err": err, "bound_ms": bms,
+        "bound_by": by, "shape": [list(q.shape), list(k.shape)],
+        "flops": nflops, "bytes": nbytes}
+    with torch.inference_mode():
+        _timed(torch, entry, lambda: flash_attention(q, k, v),
+               ("flash_attention_kernel",),
+               lambda: ref.flash_attention_ref(q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        entry["library_ms"], entry["library_call_ms"] = kernel_and_call_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), ())
+    entry["tflops"] = nflops / entry["ms"] / 1e9
+    log(f"[kernels] flash_attention at the serve path's {tuple(q.shape)} x "
+        f"{tuple(k.shape)}: device ms={entry['ms']:.4f} "
+        f"({entry['tflops']:.1f} TFLOP/s), plain ms={entry['plain_ms']:.4f},"
+        f" scaled_dot_product_attention ms={entry['library_ms']:.4f}, bound "
+        f"{bms:.4f} ms ({by}: {nflops / 1e12:.4f} TFLOP, "
+        f"{nbytes / 1e9:.4f} GB)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+def profile_window(torch, fn, n, tag):
+    """Device busy time by kernel over `n` calls of `fn` under
+    torch.profiler, beside the wall time of `n` untraced calls; the idle
+    share is 1 - busy / untraced wall, as in `profile_steps`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            by_kernel[evt.key] = us / n / 1e3
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    log(f"[profile {tag}] {n} calls: untraced wall {wall_ms:.3f} ms/call, "
+        f"device busy {busy:.3f} ms/call; idle share "
+        f"{1 - busy / wall_ms:.3f}")
+    for name, ms in top:
+        log(f"[profile {tag}]   {ms:9.4f} ms  {name[:110]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms, "top": top}
+
+
+def phase_serve(torch, dev, spec, cfg, model, results):
+    """The dense main path: greedy_decode of yi-6b at full width and depth,
+    batch 8 x 4096, 32 steps, counted; then its parts timed alone."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import serve
+
+    batch = {"tokens": prompts(cfg, SERVE_BATCH, PROMPT)}
+    # warm-up: cuBLAS handles and workspaces, the allocator's pools
+    serve.greedy_decode(spec, cfg, model, batch, 2, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    toks = serve.greedy_decode(spec, cfg, model, batch, DECODE_STEPS,
+                               device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve] {ARCH} {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.4f} B params: greedy_decode batch "
+        f"{SERVE_BATCH} x prompt {PROMPT}, {DECODE_STEPS} steps in "
+        f"{wall:.4f} s ({SERVE_BATCH * DECODE_STEPS / wall:.2f} generated "
+        f"tok/s); max_memory_allocated {peak / 2 ** 30:.3f} GiB "
+        f"({peak} B); launches {counts}")
+    require(tuple(toks.shape) == (SERVE_BATCH, DECODE_STEPS)
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"bad tokens {tuple(toks.shape)}")
+    require(counts["flash_attention"] == cfg.num_layers
+            and sum(counts.values()) == cfg.num_layers,
+            f"greedy_decode launched {counts}: expected flash_attention "
+            f"{cfg.num_layers} times (once per layer of the prefill)")
+    results["flash_attention"]["launches"] = counts["flash_attention"]
+
+    # the parts alone: prefill, then each decode step
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    prefill = serve.make_prefill_step(spec, cfg)
+    decode = serve.make_decode_step(spec, cfg)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    pre_counts = ops.launch_counts()
+    require(pre_counts["flash_attention"] == cfg.num_layers,
+            f"prefill launched {pre_counts}")
+    require(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+            "non-finite prefill logits")
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    require(torch.equal(tok[:, 0], toks[:, 0]),
+            "prefill alone chose other first tokens than greedy_decode")
+    ops.reset_launch_counts()
+    step_ms = []
+    for _ in range(16):
+        t = time.perf_counter()
+        logits, cache = decode(model, cache, tok)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    dec_counts = ops.launch_counts()
+    require(sum(dec_counts.values()) == 0,
+            f"decode steps launched {dec_counts}")
+    require(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+            "non-finite decode logits")
+    step_med = statistics.median(step_ms)
+    log(f"[serve] prefill alone {prefill_s * 1e3:.3f} ms "
+        f"({SERVE_BATCH * PROMPT / prefill_s:.1f} prompt tok/s), launches "
+        f"{pre_counts}; decode step median {step_med:.4f} ms over 16 "
+        f"(min {min(step_ms):.4f}, max {max(step_ms):.4f}; "
+        f"{SERVE_BATCH / step_med * 1e3:.2f} tok/s), launches {dec_counts}")
+
+    def step():
+        decode(model, cache, tok)
+
+    # 16 more steps: 8 untraced, 8 traced; the cache keeps 32 slots of
+    # headroom, so no step writes past it
+    dec_prof = profile_window(torch, step, 8, "decode step")
+    del cache, logits
+    torch.cuda.empty_cache()
+    pre_prof = profile_window(
+        torch, lambda: prefill(model, {"tokens": tokens}), 1, "prefill")
+    torch.cuda.empty_cache()
+    return {"arch": ARCH, "batch": SERVE_BATCH, "prompt": PROMPT,
+            "decode_steps": DECODE_STEPS, "greedy_s": wall,
+            "generated_tok_per_s": SERVE_BATCH * DECODE_STEPS / wall,
+            "prefill_ms": prefill_s * 1e3,
+            "prompt_tok_per_s": SERVE_BATCH * PROMPT / prefill_s,
+            "decode_ms_median": step_med, "decode_ms": step_ms,
+            "max_memory_allocated": peak, "launches": counts,
+            "decode_profile": dec_prof, "prefill_profile": pre_prof,
+            "first_tokens": toks[:2].cpu().tolist()}
+
+
+def phase_dense_parity(torch, dev):
+    """yi-6b at full width, 2 layers: the card against the CPU on the same
+    weights and tokens, and the card's prefill with the kernel against the
+    card's prefill with the plain attention in its place.
+
+    Tolerance: both sides round their bf16 activations at the same places
+    but sum in other orders (cuBLAS against oneDNN, the kernel's bf16
+    probabilities against f32 ones), so they differ by a few bf16 units
+    of the activations' scale; the logits must agree to the reference's
+    bf16 tolerance taken relative to the row's scale,
+    |d| <= ATTN_TOL * max|logits| of the row, and the greedy tokens may
+    differ only where the CPU's top two logits are closer than that."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer
+
+    spec, cfg, cpu = yi_model(torch, "cpu", num_layers=2,
+                              generator=torch.Generator().manual_seed(SEED))
+    card = transformer.Transformer(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    tokens = prompts(cfg, 2, 256)
+    out = {"steps": []}
+
+    def compare(tag, got, want):
+        got = got.float().cpu()[:, -1, :cfg.vocab_size]
+        want = want.float().cpu()[:, -1, :cfg.vocab_size]
+        scale = want.abs().amax(dim=-1, keepdim=True)
+        d = (got - want).abs()
+        ok = bool((d <= ATTN_TOL * scale).all())
+        top2 = torch.topk(want, 2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        same = got.argmax(-1) == want.argmax(-1)
+        tie = gap < ATTN_TOL * scale[:, 0]
+        ok = ok and bool((same | tie).all())
+        rec = {"step": tag, "max_abs_err": float(d.max()),
+               "mean_abs_err": float(d.mean()),
+               "tol": (ATTN_TOL * scale[:, 0]).tolist(),
+               "argmax_equal": same.tolist()}
+        log(f"[dense parity] {tag}: max|d logits|={rec['max_abs_err']:.4e} "
+            f"mean {rec['mean_abs_err']:.4e} (tol {ATTN_TOL} x max|logit| "
+            f"= {[round(x, 4) for x in rec['tol']]}); argmax equal "
+            f"{rec['argmax_equal']} ok={ok}")
+        require(ok, f"card and reference disagree at {tag}")
+        return rec
+
+    ops.reset_launch_counts()
+    logits_c, cache_c = spec.prefill(
+        card, {"tokens": torch.from_numpy(tokens).to(dev)}, cfg)
+    require(ops.launch_counts()["flash_attention"] == 2,
+            f"2-layer prefill launched {ops.launch_counts()}")
+    logits_h, cache_h = spec.prefill(
+        cpu, {"tokens": torch.from_numpy(tokens)}, cfg)
+    out["steps"].append(compare("prefill, card vs CPU", logits_c, logits_h))
+    seen = ops.flash_attention
+    try:
+        ops.flash_attention = ref.flash_attention_ref
+        logits_p, _ = spec.prefill(
+            card, {"tokens": torch.from_numpy(tokens).to(dev)}, cfg)
+    finally:
+        ops.flash_attention = seen
+    out["kernel_vs_plain"] = compare(
+        "prefill on the card, kernel vs plain attention", logits_c, logits_p)
+    tok = torch.argmax(logits_c[:, -1], dim=-1)[:, None].to(torch.int32)
+    for i in range(4):
+        logits_c, cache_c = spec.decode_step(card, cache_c, tok, cfg)
+        logits_h, cache_h = spec.decode_step(cpu, cache_h, tok.cpu(), cfg)
+        out["steps"].append(compare(f"decode step {i + 1}, card vs CPU",
+                                    logits_c, logits_h))
+        tok = torch.argmax(logits_c[:, -1], dim=-1)[:, None].to(torch.int32)
+    dk = float((cache_c["k"].float().cpu() - cache_h["k"].float()).abs().max())
+    log(f"[dense parity] K cache after 4 steps: max|d|={dk:.4e}")
+    out["cache_k_max_abs_err"] = dk
+    del card, cache_c
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -731,17 +1089,32 @@ def main():
     engine = phase_engine(torch, dev, results, train, test, hot)
     engine["batch_gen_s"] = gen_s
     parity = phase_parity(torch, dev)
+    del train, test
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    spec, cfg, model = yi_model(torch, dev)
+    torch.cuda.synchronize()
+    log(f"[serve] {ARCH} weights from torch.Generator(seed {SEED}) on the "
+        f"card in {time.perf_counter() - t0:.2f} s: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
+    phase_attention(torch, dev, model, cfg, results)
+    served = phase_serve(torch, dev, spec, cfg, model, results)
+    del model
+    torch.cuda.empty_cache()
+    dense_parity = phase_dense_parity(torch, dev)
 
     kernels = [results[name] for name in ("sigmoid_grad",
                                           "segment_sum_sorted",
-                                          "select_pack")]
+                                          "select_pack", "flash_attention")]
     out = ROOT / "results"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build_s": build_s, "kernels": kernels,
          "owner_accumulate": results["owner_accumulate"],
          "reduces": results["reduces"],
-         "engine": engine, "parity": parity}, indent=1))
+         "engine": engine, "parity": parity, "serve": served,
+         "dense_parity": dense_parity}, indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -30,20 +30,10 @@ from repro_torch.configs.base import DPMRConfig
 from repro_torch.core import dpmr, hot_sharding
 from repro_torch.core.dpmr import StepFns
 from repro_torch.data.sources import DataSource
+from repro_torch.device import resolve_device
 
 BATCH_DTYPES = {"ids": torch.int32, "vals": torch.float32,
                 "labels": torch.int32}
-
-
-def resolve_device(device=None) -> torch.device:
-    """`None` means the card. A CUDA device without a card raises: the
-    port never continues on the CPU unless the caller asked for it."""
-    dev = torch.device("cuda") if device is None else torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; repro_torch runs on the card "
-            "unless the caller passes device='cpu'")
-    return dev
 
 
 def put_batch(batch: dict, device) -> dict:

@@ -1,3 +1,34 @@
-from repro_torch.configs.base import DPMRConfig
+"""Arch-id -> config registry of the port (counterpart of `repro.configs`).
 
-__all__ = ["DPMRConfig"]
+Architecture ids use the reference's spelling (dashes/dots); module names
+use underscores. The port serves the `dense` and `vlm` families, so only
+their configs are here; any other id raises a `KeyError` naming ROADMAP
+A12, where the reference's other families wait.
+"""
+from repro_torch.configs.base import DPMRConfig, ModelConfig
+
+_ARCH_MODULES = {
+    "granite-8b": "granite_8b",
+    "yi-6b": "yi_6b",
+    "llama3-405b": "llama3_405b",
+    "granite-34b": "granite_34b",
+    "chameleon-34b": "chameleon_34b",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    import importlib
+
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(
+            f"arch {arch_id!r} is not in the port: it serves "
+            f"{sorted(_ARCH_MODULES)}; the reference's MoE, SWA, hybrid, "
+            "SSM and encoder-decoder models are ROADMAP A12")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
+    return mod.CONFIG
+
+
+__all__ = ["ARCH_IDS", "DPMRConfig", "ModelConfig", "get_config"]

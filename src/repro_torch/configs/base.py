@@ -1,13 +1,20 @@
-"""Configuration dataclass of the DPMR sparse face (PyTorch port).
+"""Configuration dataclasses of the PyTorch port.
 
-The counterpart of `repro.configs.base.DPMRConfig`: the same frozen
-dataclass, with the same defaults for every field it has. It holds only
-the fields the port reads: the reference's `kernel_impl` (its lowering
-knob; the port dispatches by the tensor's device) and `seed` come back
-with the code that reads them, so passing one is an error rather than
-silently ignored. The reference
-module's TPU hardware constants are deliberately not carried over; the
-port's speed figures come from runs on the card (see PERF.md).
+`DPMRConfig` is the counterpart of `repro.configs.base.DPMRConfig` (the
+sparse face): the same frozen dataclass, with the same defaults for every
+field it has. It holds only the fields the port reads: the reference's
+`kernel_impl` (its lowering knob; the port dispatches by the tensor's
+device) and `seed` come back with the code that reads them, so passing
+one is an error rather than silently ignored.
+
+`ModelConfig` is the counterpart of `repro.configs.base.ModelConfig` (the
+dense face), with all of its fields and defaults; the port serves the
+`dense` and `vlm` families, and its model code raises on the fields of
+the families it does not run yet (MoE experts, a sliding window).
+
+The reference module's TPU hardware constants are deliberately not
+carried over; the port's speed figures come from runs on the card (see
+PERF.md).
 """
 from __future__ import annotations
 
@@ -42,3 +49,103 @@ class DPMRConfig:
     schedule: str = "constant"       # any name in optim.schedules.SCHEDULES
     warmup_steps: int = 0            # schedule parameters (warmup_cosine)
     total_steps: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyper-parameters (one instance per arch)."""
+
+    name: str
+    family: str                     # dense | moe | hybrid | ssm | encdec | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0               # 0 -> d_model // num_heads
+
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+
+    # Attention
+    sliding_window: int = 0         # 0 = full attention (Mixtral uses SWA)
+    qk_norm: bool = False           # chameleon-style qk layernorm
+
+    # SSM / hybrid (zamba2)
+    ssm_state: int = 0
+    ssm_heads: int = 0              # 0 -> num_heads
+    ssm_expand: int = 2
+    attn_every: int = 0             # hybrid: shared attention block every N layers
+
+    # xLSTM
+    slstm_every: int = 0            # every Nth block is sLSTM (rest mLSTM)
+
+    # Encoder-decoder (whisper)
+    encoder_layers: int = 0
+
+    # MLP flavour
+    mlp_type: str = "swiglu"        # swiglu (3 mats) | gelu (2 mats)
+
+    # Numerics
+    dtype: str = "bfloat16"         # activation dtype
+    param_dtype: str = "float32"    # master parameter dtype
+    opt_dtype: str = "float32"      # optimizer moment dtype
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    # Modality frontend stub: if True, input_specs() provides precomputed
+    # frame/patch embeddings instead of token ids for the encoder side.
+    frontend_stub: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def resolved_ssm_heads(self) -> int:
+        return self.ssm_heads or self.num_heads
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for MODEL_FLOPS = 6*N*D)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        qo = self.num_heads * hd
+        kv = self.num_kv_heads * hd
+        attn = d * qo + 2 * d * kv + qo * d
+        if self.family == "ssm":                      # xLSTM-style blocks
+            per_layer = _xlstm_block_params(self)
+        elif self.family == "hybrid":
+            per_layer = _mamba_block_params(self)
+            # shared attention block amortized over layers it serves
+            n_attn = self.num_layers // max(self.attn_every, 1)
+            shared = attn + 3 * d * f
+            return (self.num_layers * per_layer + n_attn * shared
+                    + v * d * (1 if self.tie_embeddings else 2))
+        else:
+            mats = 3 if self.mlp_type == "swiglu" else 2
+            mlp = mats * d * f
+            if self.num_experts:
+                mlp = self.num_experts * mats * d * f + d * self.num_experts
+            per_layer = attn + mlp
+        n_layers = self.num_layers + self.encoder_layers
+        embed = v * d * (1 if self.tie_embeddings else 2)
+        return n_layers * per_layer + embed
+
+
+def _xlstm_block_params(cfg: ModelConfig) -> int:
+    d = cfg.d_model
+    # mLSTM block: up-proj 2x, qkv, gates, down-proj (approximate, matches model defs)
+    return 2 * d * 2 * d + 4 * (2 * d) * (2 * d) // 4 + 2 * d * d
+
+
+def _mamba_block_params(cfg: ModelConfig) -> int:
+    d = cfg.d_model
+    e = cfg.ssm_expand
+    di = e * d
+    n = cfg.ssm_state
+    g = max(1, cfg.resolved_ssm_heads // 4)
+    return d * 2 * di + di * d + 2 * g * n * d + di  # in/out proj + B,C proj + dt

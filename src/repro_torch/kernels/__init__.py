@@ -9,6 +9,8 @@ Layout:
                       behind ops.owner_accumulate and the combiner)
   select_pack.py      wrapper of csrc/select_pack.cu (topk_reduce's
                       per-row top-k select + pack)
+  flash_attention.py  wrapper of csrc/flash_attention.cu (the dense
+                      prefill's causal GQA attention, bf16)
   build.py            nvcc build of csrc/*.cu for sm_90a at first use,
                       loaded with ctypes
 """

@@ -115,6 +115,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_select_pack_radix.restype = i
     lib.repro_select_pack_f32.argtypes = [p] * 12 + [i, i, i, p]
     lib.repro_select_pack_f32.restype = i
+    lib.repro_flash_attention_bf16.argtypes = [
+        p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ll), ctypes.c_float, i,
+        p]
+    lib.repro_flash_attention_bf16.restype = i
     return lib
 
 

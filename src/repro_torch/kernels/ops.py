@@ -18,6 +18,8 @@ Call sites on the main path:
                         `core.sparse.combine_grads` on the routing's order
   - `select_pack`       topk_reduce's compensate + rank + pack
                         (api.strategies.TopKReduceStrategy.reduce)
+  - `flash_attention`   the dense face's prefill self-attention, once per
+                        layer (models.layers.causal_self_attention)
 
 Each kernel wrapper keeps a plain-int launch counter; `launch_counts()`
 reads them and `reset_launch_counts()` sets them to 0.
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import segment_sum as _ss
 from repro_torch.kernels import select_pack as _sp
 from repro_torch.kernels import sigmoid_grad as _sg
@@ -35,19 +38,22 @@ INT32_MAX = 2 ** 31 - 1
 sigmoid_grad = _sg.sigmoid_grad
 segment_sum_sorted = _ss.segment_sum_sorted
 select_pack = _sp.select_pack
+flash_attention = _fa.flash_attention
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
     return {"sigmoid_grad": _sg.launches,
             "segment_sum_sorted": _ss.launches,
-            "select_pack": _sp.launches}
+            "select_pack": _sp.launches,
+            "flash_attention": _fa.launches}
 
 
 def reset_launch_counts() -> None:
     _sg.launches = 0
     _ss.launches = 0
     _sp.launches = 0
+    _fa.launches = 0
 
 
 def sorted_run_totals(ids: torch.Tensor, grads: torch.Tensor):

@@ -1,12 +1,15 @@
 """Plain PyTorch versions of the port's kernels.
 
 Counterparts of `repro.kernels.ref.sigmoid_grad_ref`,
-`segment_sum_sorted_ref` and `select_pack_ref`. Each is the function its CUDA kernel computes,
-written as ordinary tensor code: the wrappers in this package run it when
-they are handed CPU tensors, the CPU tests hold it against the JAX
-package, and `chip_smoke.py` holds each kernel against it on the card.
+`segment_sum_sorted_ref`, `select_pack_ref` and `flash_attention_ref`.
+Each is the function its CUDA kernel computes, written as ordinary tensor
+code: the wrappers in this package run it when they are handed CPU
+tensors, the CPU tests hold it against the JAX package, and
+`chip_smoke.py` holds each kernel against it on the card.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -84,3 +87,27 @@ def select_pack_ref(send, ids, carry_slots, k: int):
     vals_k = torch.where(ids_k >= 0, torch.gather(comp, 1, top_idx), 0.0)
     resid = torch.where(top_mask & valid, 0.0, comp)
     return vals_k, ids_k, resid
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """O(S^2) attention. q: (B, Sq, H, D); k, v: (B, Skv, KH, D), H % KH == 0.
+
+    Scores, softmax and the weighted sum in f32 (inputs upcast), output in
+    q's dtype. q head h reads kv head h // (H / KH): the heads are grouped
+    as (KH, group), which gives the reference's `jnp.repeat` numbers
+    without repeating K/V. With `causal`, key j is visible from query i
+    when j <= i + (Skv - Sq) (bottom-right aligned, as
+    `repro.kernels.ref.flash_attention_ref`), masked with a finite -1e30.
+    """
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    qg = q.to(torch.float32).reshape(b, sq, kh, h // kh, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(torch.float32))
+    s = s / math.sqrt(d)
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        mask = qpos >= torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+    return out.reshape(b, sq, h, d).to(q.dtype)

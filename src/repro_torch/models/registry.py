@@ -1,0 +1,59 @@
+"""Architecture registry of the port: arch id -> params, prefill, decode
+(counterpart of `repro.models.registry`, for the ported families).
+
+The port serves the `dense` and `vlm` families through
+`models.transformer`; `configs.get_config` raises for the others.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Callable
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    cfg: ModelConfig
+    model: Callable               # (cfg, device) -> uninitialised nn.Module
+    prefill: Callable             # (model, batch, cfg) -> (logits, cache)
+    decode_step: Callable         # (model, cache, tokens, cfg) -> (logits,
+    #                               cache)
+
+
+def _lm_prefill(model, batch, cfg):
+    return transformer.prefill(model, batch["tokens"], cfg)
+
+
+_FAMILY = {
+    "dense": dict(model=transformer.Transformer, prefill=_lm_prefill,
+                  decode_step=transformer.decode_step),
+}
+_FAMILY["vlm"] = _FAMILY["dense"]
+
+
+def get_spec(arch_id: str) -> ArchSpec:
+    cfg = get_config(arch_id)
+    return ArchSpec(arch_id=arch_id, cfg=cfg, **_FAMILY[cfg.family])
+
+
+def smoke_config(arch_id: str) -> ModelConfig:
+    """Same-family reduced config: tiny widths, few layers, f32, as the
+    reference's `registry.smoke_config`."""
+    cfg = get_config(arch_id)
+    return dataclasses.replace(
+        cfg,
+        num_layers=2,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=min(cfg.num_kv_heads, 2)
+        if cfg.num_kv_heads < cfg.num_heads else 4,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=256,
+        head_dim=16,
+        param_dtype="float32",
+        dtype="float32",
+    )

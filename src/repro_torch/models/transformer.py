@@ -1,0 +1,177 @@
+"""Decoder-only transformer, serve path (counterpart of
+`repro.models.transformer`): the dense family, and chameleon (vlm) with
+qk-norm.
+
+`Transformer` holds the parameters as `nn.Module`s, one `DecoderLayer`
+per layer, under the reference's names and layouts (`attn.wq`,
+`mlp.wi_gate`, `ln1`, ..., `embed`, `ln_f`, `unembed`); the reference
+stacks the layers on a leading axis for `lax.scan`, the port loops over
+them (`convert` carries a stacked numpy tree either way).
+
+`prefill` and `decode_step` follow `transformer.prefill` and
+`transformer.decode_step`. The KV cache has the reference's layout
+(`cache_defs`): k and v (L, B, slots, KH, hd) in `cfg.dtype`, `length`
+(B,) int32. Prefill allocates it once with PREFILL_EXTRA slots of zero
+headroom and writes each layer's K/V into it (the reference pads after
+the scan); decode writes its slot in place (the reference's one-hot
+masked update, which gives the same values).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import common, layers
+
+PREFILL_EXTRA = 32   # decode headroom appended to prefill caches
+
+
+def _ported(cfg: ModelConfig) -> None:
+    if cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers (num_experts={cfg.num_experts}) are "
+            "not ported, ROADMAP A12")
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window attention is not ported, "
+            "ROADMAP A12")
+
+
+class _Params(nn.Module):
+    def __init__(self, defs: dict, cfg: ModelConfig, device=None):
+        super().__init__()
+        common.add_params(self, defs, cfg, device)
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm block: attention and MLP, each behind an RMS norm."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.attn = _Params(layers.attn_defs(cfg), cfg, device)
+        self.mlp = _Params(layers.mlp_defs(cfg), cfg, device)
+        common.add_params(self, {"ln1": (cfg.d_model,),
+                                 "ln2": (cfg.d_model,)}, cfg, device)
+
+
+class Transformer(nn.Module):
+    """Parameters of a decoder-only LM on `device` (default: the card;
+    raises without one unless `device="cpu"`), uninitialised until
+    `common.init_params` or `convert.params_from_numpy` fills them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        _ported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device)
+                                    for _ in range(cfg.num_layers))
+        common.add_params(self, common.embed_defs(cfg), cfg, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def unembed_table(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.unembed
+
+
+def transformer_defs(cfg: ModelConfig) -> dict:
+    """Parameter shapes in the reference's tree, layers stacked on a
+    leading axis (the layout `convert` carries)."""
+    L = cfg.num_layers
+    layer = {"attn": layers.attn_defs(cfg), "mlp": layers.mlp_defs(cfg),
+             "ln1": (cfg.d_model,), "ln2": (cfg.d_model,)}
+
+    def stack(d):
+        return {k: stack(v) if isinstance(v, dict) else (L, *v)
+                for k, v in d.items()}
+
+    return {"layers": stack(layer), **common.embed_defs(cfg)}
+
+
+def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """KV cache shapes and dtypes: k and v (L, B, max_len, KH, hd)."""
+    kv = ((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+           cfg.resolved_head_dim), common.act_dtype(cfg))
+    return {"k": kv, "v": kv, "length": ((batch,), torch.int32)}
+
+
+def _rope_tables(positions, cfg: ModelConfig):
+    """(sin, cos) for `positions`, computed once for all layers (the
+    reference computes the same tables in every layer), or None."""
+    if not cfg.rope_theta:
+        return None
+    return layers.rope_tables(positions, cfg.resolved_head_dim,
+                              cfg.rope_theta)
+
+
+def _rope(q, k, tables):
+    if tables is None:
+        return q, k
+    sin, cos = tables
+    return layers.apply_rope(q, sin, cos), layers.apply_rope(k, sin, cos)
+
+
+def _ffn_half(lp, x, cfg: ModelConfig):
+    h = layers.rms_norm(x, lp.ln2, cfg.norm_eps)
+    return x + layers.mlp_block(lp.mlp, h, cfg)
+
+
+@torch.inference_mode()
+def prefill(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig):
+    """tokens (B, S) int -> (last-token logits (B, 1, V_pad) f32, cache)."""
+    b, s = tokens.shape
+    x = common.embed_tokens(model.embed, tokens, cfg)
+    tables = _rope_tables(torch.arange(s, dtype=torch.int32,
+                                       device=x.device), cfg)
+    cache = {name: torch.zeros(shape, dtype=dtype, device=x.device)
+             for name, (shape, dtype)
+             in cache_defs(cfg, b, s + PREFILL_EXTRA).items()}
+    cache["length"].fill_(s)
+    for i, lp in enumerate(model.layers):
+        h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
+        q = layers.project_q(lp.attn, h, cfg)
+        k, v = layers.project_kv(lp.attn, h, cfg)
+        q, k = _rope(q, k, tables)
+        att = layers.causal_self_attention(q, k, v,
+                                           window=cfg.sliding_window)
+        x = x + layers.project_out(lp.attn, att)
+        x = _ffn_half(lp, x, cfg)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+    x = layers.rms_norm(x[:, -1:], model.ln_f, cfg.norm_eps)
+    return common.lm_head(model.unembed_table(), x, cfg), cache
+
+
+@torch.inference_mode()
+def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
+                cfg: ModelConfig):
+    """One decode step. tokens: (B, 1) int; `cache` as `prefill` returns
+    it, updated IN PLACE (its K/V slot and `length`) and returned.
+    Returns (logits (B, 1, V_pad) f32, cache)."""
+    b = tokens.shape[0]
+    slots = cache["k"].shape[2]
+    pos = cache["length"]                                  # (B,)
+    x = common.embed_tokens(model.embed, tokens, cfg)
+    rows = torch.arange(b, device=x.device)
+    slot = torch.clamp(pos, max=slots - 1).long()
+    tables = _rope_tables(pos[:, None], cfg)
+    visible = pos + 1
+    for i, lp in enumerate(model.layers):
+        h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
+        q = layers.project_q(lp.attn, h, cfg)
+        k_new, v_new = layers.project_kv(lp.attn, h, cfg)
+        q, k_new = _rope(q, k_new, tables)
+        cache["k"][i, rows, slot] = k_new[:, 0]
+        cache["v"][i, rows, slot] = v_new[:, 0]
+        att = layers.decode_attention(q, cache["k"][i], cache["v"][i],
+                                      visible, window=cfg.sliding_window)
+        x = x + layers.project_out(lp.attn, att)
+        x = _ffn_half(lp, x, cfg)
+    x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
+    logits = common.lm_head(model.unembed_table(), x, cfg)
+    cache["length"] += 1
+    return logits, cache

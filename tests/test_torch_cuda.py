@@ -7,7 +7,10 @@ the file imports no JAX, so it runs on a machine that has only PyTorch:
 
 The kernels build with nvcc at first use (src/repro_torch/kernels/build.py).
 `select_pack` only moves values and adds once, so it is held to its plain
-version bit for bit.
+version bit for bit. `flash_attention` takes bf16 and rounds the
+probabilities to bf16 before their product with V, where its plain
+version stays in f32: both outputs are bf16, held to the reference's bf16
+tolerance of 2e-2 (tests/test_kernels.py).
 """
 import numpy as np
 import pytest
@@ -167,3 +170,74 @@ def test_combine_and_hot_grads_bit_reproducible(cuda):
         torch.cuda.synchronize()
         assert all(_same_bits(o, outs[0]) for o in outs)
         assert outs[0].any()
+
+
+# (B, Sq, Skv, H, KH, D, causal): the serve path's head layout at a short
+# S, then D = 64, MHA, MQA with group 48, ragged S, Sq < Skv, full
+# attention and one query row
+_ATTN_CASES = {
+    "yi-6b-heads": (2, 512, 512, 32, 4, 128, True),
+    "d64": (1, 256, 256, 8, 8, 64, True),
+    "mha": (2, 192, 192, 4, 4, 128, True),
+    "mqa-48": (1, 320, 320, 48, 1, 128, True),
+    "ragged-1000": (1, 1000, 1000, 8, 2, 128, True),
+    "sq-below-skv": (2, 100, 333, 8, 2, 128, True),
+    "full": (1, 200, 200, 8, 2, 128, False),
+    "full-sq-below-skv": (1, 70, 129, 4, 2, 64, False),
+    "sq-1": (2, 1, 777, 8, 2, 128, True),
+}
+
+
+def _attn_inputs(cuda, b, sq, skv, h, kh, d, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+
+    return t(b, sq, h, d), t(b, skv, kh, d), t(b, skv, kh, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_ATTN_CASES))
+def test_flash_attention_kernel_matches_plain(cuda, case):
+    b, sq, skv, h, kh, d, causal = _ATTN_CASES[case]
+    q, k, v = _attn_inputs(cuda, b, sq, skv, h, kh, d, seed=sq + skv + h)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    """q, k and v as views into one fused (B, S, H + 2 KH, D) projection:
+    the kernel reads them in place by strides."""
+    b, s, h, kh, d = 2, 300, 8, 2, 128
+    rng = np.random.default_rng(5)
+    qkv = torch.from_numpy(rng.normal(size=(b, s, h + 2 * kh, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
+    assert not q.is_contiguous()
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses(cuda):
+    q, k, v = _attn_inputs(cuda, 1, 64, 32, 4, 2, 128, seed=1)
+    with pytest.raises(ValueError, match="Sq = 64 > Skv = 32"):
+        ops.flash_attention(q, k, v, causal=True)
+    q, k, v = _attn_inputs(cuda, 1, 32, 32, 4, 2, 128, seed=2)
+    with pytest.raises(TypeError, match="torch.bfloat16"):
+        ops.flash_attention(q.float(), k.float(), v.float())
+    q, k, v = _attn_inputs(cuda, 1, 32, 32, 4, 2, 32, seed=3)
+    with pytest.raises(ValueError, match="head dim 32"):
+        ops.flash_attention(q, k, v)

@@ -13,7 +13,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return [*files, ROOT / "chip_smoke.py"]
+    return [*files, ROOT / "chip_smoke.py",
+            ROOT / "tests" / "test_torch_cuda.py"]
 
 
 def _top_level_imports(path):
@@ -97,7 +98,12 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     """The wrappers' checks run before any build or launch."""
-    from repro_torch.kernels import segment_sum, select_pack, sigmoid_grad
+    from repro_torch.kernels import (
+        flash_attention,
+        segment_sum,
+        select_pack,
+        sigmoid_grad,
+    )
 
     meta = torch.empty((4, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
@@ -109,3 +115,57 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     ids = torch.empty((2, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         select_pack._check(meta[:2], ids, meta[:2], 3)
+    q = torch.empty((1, 8, 4, 64), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((1, 8, 2, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        flash_attention._check_cuda(q, kv, kv)
+
+
+def test_serving_without_device_needs_a_card():
+    """The serve CLI and greedy_decode run on the card unless told
+    device='cpu', and raise without one."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import registry, transformer
+    from repro_torch.train import serve
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: serving runs on it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--arch", "yi-6b", "--decode-steps", "2"])
+    spec = registry.get_spec("yi-6b")
+    cfg = registry.smoke_config("yi-6b")
+    model = transformer.Transformer(cfg, device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.greedy_decode(spec, cfg, model, batch, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.Transformer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.greedy_decode(spec, cfg, model, batch, 2, device="cuda")
+
+
+def test_unported_model_features_raise(capsys):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import layers, registry, transformer
+
+    cfg = registry.smoke_config("yi-6b")
+    for field in ("num_experts", "sliding_window"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            transformer.Transformer(dataclasses.replace(cfg, **{field: 4}),
+                                    device="cpu")
+    q = torch.zeros((1, 4, 4, 16))
+    kv = torch.zeros((1, 4, 2, 16))
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        layers.causal_self_attention(q, kv, kv, window=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        layers.decode_attention(q[:, :1], kv, kv, torch.tensor([4]),
+                                window=2)
+    for arch in ("mixtral-8x22b", "zamba2-2.7b", "whisper-small"):
+        with pytest.raises(KeyError, match="ROADMAP A12"):
+            get_config(arch)
+    with pytest.raises(SystemExit):
+        launch_serve.main(["--sparse"])
+    assert "ROADMAP A8" in capsys.readouterr().err

@@ -79,9 +79,12 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     got = ops.select_pack(send, torch.tensor([[4, 5, -1]], dtype=torch.int32),
                           torch.zeros((1, 3)), 1)
     assert got[1].tolist() == [[5]] and got[0].tolist() == [[-3.0]]
+    q = torch.from_numpy(rng.normal(size=(1, 5, 2, 4)).astype(np.float32))
+    assert torch.equal(ops.flash_attention(q, q[:, :, :1], q[:, :, 1:]),
+                       ref.flash_attention_ref(q, q[:, :, :1], q[:, :, 1:]))
     assert ops.launch_counts() == {"sigmoid_grad": 0,
                                    "segment_sum_sorted": 0,
-                                   "select_pack": 0}
+                                   "select_pack": 0, "flash_attention": 0}
 
 
 # ---------------------------------------------------------------------------
