@@ -6,7 +6,9 @@
 Phases, in order; any failure exits non-zero:
   1. device   require CUDA; print the card's name and power limit
   2. build    nvcc-build the port's CUDA kernels from src/repro_torch/
-              kernels/csrc (sm_90a), print the build seconds
+              kernels/csrc (sm_90a), print the build seconds; from
+              ptxas' report, flash_attention's registers, spills (must
+              be 0) and shared memory (must fit a block)
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shapes and on adversarial inputs
               (`select_pack` bit for bit). Two times each: `ms`/
@@ -31,9 +33,11 @@ Phases, in order; any failure exits non-zero:
               from a torch.Generator seeded 0; `flash_attention` against
               its plain version on layer 0's q, k, v of a (1, 4096)
               prefill, and on adversarial shapes (D = 64, MHA, MQA with
-              group 48, ragged S, Sq < Skv, full attention, Sq = 1);
-              timed at the serve path's (8, 4096) with its plain version
-              and scaled_dot_product_attention as the yardstick
+              group 48, ragged S, Sq < Skv, full attention, Sq = 1, the
+              kernel's tile edges); timed at the serve path's (8, 4096)
+              with its plain version and scaled_dot_product_attention as
+              the yardstick; the timed call's own output held to the
+              plain version, and 3 calls bit-identical
   7. serve    greedy_decode of yi-6b, batch 8 x prompt 4096 (numpy seed
               0), 32 steps, with the launch counters set to 0 just before
               and read just after (flash_attention: 32, all in prefill);
@@ -49,6 +53,7 @@ results/chip_smoke.json.
 """
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -62,6 +67,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_TC_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+SMEM_PER_BLOCK = 232448        # H100 shared memory a block can use
 LOG2_F, K, BATCH, STEPS = 27, 64, 4096, 20
 TOPK_FRAC = 0.05
 SEED = 0
@@ -183,16 +189,66 @@ def phase_device(torch):
     return smi
 
 
+def ptxas_resources(text):
+    """Per kernel in a `-Xptxas -v` report: registers, stack, spill
+    stores and loads (bytes), static shared memory (bytes)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "stack": 0, "spill_stores": 0,
+                         "spill_loads": 0, "smem": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
 def phase_build():
+    """Build the kernels; check flash_attention's resource report: no
+    spills, and its dynamic shared memory within the card's 227 KB."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
     build.build(verbose=True)
-    build.library()
+    lib = build.library()
     secs = time.perf_counter() - t0
     log(f"[build] nvcc {build.find_nvcc()} -> {build.BUILD_DIR}: "
         f"{secs:.2f} s")
-    return secs
+    res = ptxas_resources(build.report("flash_attention").read_text())
+    fa = {}
+    for name, r in res.items():
+        d = 128 if "ILi128E" in name else 64 if "ILi64E" in name else None
+        if "flash_attention_kernel" not in name or d is None:
+            continue
+        r["dynamic_smem"] = lib.repro_flash_attention_smem_bytes(d)
+        fa[f"D={d}"] = r
+        log(f"[build] flash_attention_kernel<{d}>: {r['registers']} "
+            f"registers a thread at launch (setmaxnreg then gives the "
+            f"producer 24, the consumers 240), stack {r['stack']} B, spill "
+            f"stores {r['spill_stores']} B, spill loads {r['spill_loads']} "
+            f"B, static smem {r['smem']} B, dynamic smem "
+            f"{r['dynamic_smem']} B")
+    require(sorted(fa) == ["D=128", "D=64"],
+            f"no flash_attention_kernel<64>/<128> in the ptxas report: {res}")
+    require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                for r in fa.values()), f"flash_attention spills: {fa}")
+    require(all(r["dynamic_smem"] + r["smem"] <= SMEM_PER_BLOCK
+                for r in fa.values()),
+            f"flash_attention needs more than {SMEM_PER_BLOCK} B: {fa}")
+    return secs, fa
 
 
 def make_batches(spec_kw, n, start=0):
@@ -829,7 +885,17 @@ def phase_attention(torch, dev, model, cfg, results):
             "ragged S = 1000": (2, 1000, 1000, 32, 4, 128, True),
             "Sq < Skv": (2, 300, 1000, 32, 4, 128, True),
             "causal=False": (2, 1000, 1000, 32, 4, 128, False),
-            "Sq = 1": (4, 1, 4097, 32, 4, 128, True)}.items():
+            "Sq = 1": (4, 1, 4097, 32, 4, 128, True),
+            # the tile edges of the kernel (128 query rows a block, 64 a
+            # consumer warpgroup, 128 keys a K/V tile)
+            "S = 4097 (one key past a tile)": (1, 4097, 4097, 32, 4, 128,
+                                                True),
+            "S = 65": (2, 65, 65, 32, 4, 128, True),
+            "S = 129": (2, 129, 129, 32, 4, 128, True),
+            "(Sq, Skv) = (77, 1000)": (2, 77, 1000, 32, 4, 128, True),
+            "(Sq, Skv) = (77, 1000), causal=False": (2, 77, 1000, 32, 4, 128,
+                                                     False),
+            "D = 64, S = 4096": (1, 4096, 4096, 32, 4, 64, True)}.items():
         _attn_case(torch, name, rand(b, sq, h, d), rand(b, skv, kh, d),
                    rand(b, skv, kh, d), causal)
 
@@ -844,10 +910,37 @@ def phase_attention(torch, dev, model, cfg, results):
         "launches": None, "max_abs_err": err, "bound_ms": bms,
         "bound_by": by, "shape": [list(q.shape), list(k.shape)],
         "flops": nflops, "bytes": nbytes}
+    timed = {}
+
+    def call():
+        timed["out"] = flash_attention(q, k, v)
+
     with torch.inference_mode():
-        _timed(torch, entry, lambda: flash_attention(q, k, v),
-               ("flash_attention_kernel",),
+        _timed(torch, entry, call, ("flash_attention_kernel",),
                lambda: ref.flash_attention_ref(q, k, v))
+        # the timed call's own output, one batch element at a time, and
+        # two more calls on the same inputs: the same bits
+        out = timed["out"]
+        again = [flash_attention(q, k, v) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(out, a) for a in again)
+        errs = []
+        for i in range(q.shape[0]):
+            want = ref.flash_attention_ref(q[i:i + 1], k[i:i + 1],
+                                           v[i:i + 1])
+            d = (out[i:i + 1].float() - want.float()).abs()
+            errs.append(float(d.max()))
+            require(bool((d <= ATTN_TOL * (1 + want.float().abs())).all())
+                    and bool(torch.isfinite(out[i]).all()),
+                    f"flash_attention's timed output disagrees with its "
+                    f"plain version at batch element {i}")
+        log(f"[kernels] flash_attention timed output {tuple(out.shape)}: "
+            f"max|d| by batch element {[f'{e:.3e}' for e in errs]} (tol "
+            f"{ATTN_TOL} * (1 + |plain|)) ok=True; 3 calls bit-identical="
+            f"{same}")
+        require(same, "flash_attention is not bit-reproducible")
+        entry["max_abs_err"] = max(err, *errs)
+        del out, again, timed["out"]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         entry["library_ms"], entry["library_call_ms"] = kernel_and_call_ms(
             torch, lambda: F.scaled_dot_product_attention(
@@ -1072,7 +1165,7 @@ def main():
 
     smi = phase_device(torch)
     dev = torch.device("cuda")
-    build_s = phase_build()
+    build_s, fa_resources = phase_build()
     from repro_torch.api import hot_ids_from_corpus
 
     spec = dict(num_features=1 << LOG2_F, features_per_sample=K,
@@ -1110,7 +1203,8 @@ def main():
     out = ROOT / "results"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"nvidia_smi": smi, "build_s": build_s, "kernels": kernels,
+        {"nvidia_smi": smi, "build_s": build_s,
+         "flash_attention_resources": fa_resources, "kernels": kernels,
          "owner_accumulate": results["owner_accumulate"],
          "reduces": results["reduces"],
          "engine": engine, "parity": parity, "serve": served,

@@ -62,8 +62,9 @@ def _digest(sources: list[pathlib.Path]) -> str:
 
 def build(verbose: bool = False) -> pathlib.Path:
     """Compile every source into `libkernels.so` unless it is up to date;
-    returns its path. `verbose` prints ptxas' register and shared-memory
-    report of each kernel."""
+    returns its path. nvcc's output for each source, with ptxas'
+    register, spill and shared-memory report of each kernel, is kept in
+    `report(stem)`; `verbose` prints it too."""
     nvcc = find_nvcc()
     sources = _sources()
     lib = BUILD_DIR / "libkernels.so"
@@ -83,7 +84,9 @@ def build(verbose: bool = False) -> pathlib.Path:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"{src.name} (exit {proc.returncode}):\n{out}")
-        elif verbose:
+            continue
+        report(src.stem).write_text(out)
+        if verbose:
             print(f"[nvcc {src.name}]\n{out}", flush=True)
     if failed:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
@@ -99,6 +102,12 @@ def build(verbose: bool = False) -> pathlib.Path:
     os.replace(tmp, lib)
     stamp.write_text(digest)
     return lib
+
+
+def report(stem: str) -> pathlib.Path:
+    """Where the build keeps nvcc's output (ptxas' `-v` report of each
+    kernel: registers, spills, static shared memory) for `csrc/<stem>.cu`."""
+    return BUILD_DIR / f"{stem}.ptxas.txt"
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -119,6 +128,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ll), ctypes.c_float, i,
         p]
     lib.repro_flash_attention_bf16.restype = i
+    lib.repro_flash_attention_smem_bytes.argtypes = [i]
+    lib.repro_flash_attention_smem_bytes.restype = i
     return lib
 
 

@@ -16,7 +16,9 @@ device: such rows would see no key, and no path makes one.
 On CPU tensors the wrapper computes the plain version
 (`ref.flash_attention_ref`); on CUDA tensors it launches the kernel, or
 raises on inputs the kernel does not take: bf16 only (f32 raises
-`TypeError`), D in {64, 128}, a dense head dim, 16-byte aligned rows.
+`TypeError`), D in {64, 128}, a dense head dim, strides that are
+multiples of 8 and a 16-byte aligned base (what the kernel's TMA tensor
+maps take).
 `launches` counts launches.
 """
 from __future__ import annotations
@@ -80,12 +82,10 @@ def _check_shapes(q, k, v, causal) -> None:
 def _check_cuda(q, k, v) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    b, sq, h, d = q.shape
+    d = q.shape[3]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d}; the kernel takes "
                          f"{HEAD_DIMS}")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention: B * H = {b * h} > 65535")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash_attention: {name} is {t.dtype}, the "
@@ -97,5 +97,5 @@ def _check_cuda(q, k, v) -> None:
                 or t.data_ptr() % 16:
             raise ValueError(
                 f"flash_attention: {name} strides {t.stride()}: the kernel "
-                "reads 16-byte rows, so it needs a dense head dim, other "
+                "reads by TMA, so it needs a dense head dim, other "
                 "strides that are multiples of 8 and a 16-byte aligned base")

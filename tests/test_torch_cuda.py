@@ -174,7 +174,8 @@ def test_combine_and_hot_grads_bit_reproducible(cuda):
 
 # (B, Sq, Skv, H, KH, D, causal): the serve path's head layout at a short
 # S, then D = 64, MHA, MQA with group 48, ragged S, Sq < Skv, full
-# attention and one query row
+# attention and one query row; then the kernel's tile edges (128 query
+# rows a block, 64 a consumer warpgroup, 128 keys a K/V tile)
 _ATTN_CASES = {
     "yi-6b-heads": (2, 512, 512, 32, 4, 128, True),
     "d64": (1, 256, 256, 8, 8, 64, True),
@@ -185,6 +186,12 @@ _ATTN_CASES = {
     "full": (1, 200, 200, 8, 2, 128, False),
     "full-sq-below-skv": (1, 70, 129, 4, 2, 64, False),
     "sq-1": (2, 1, 777, 8, 2, 128, True),
+    "s-4097": (1, 4097, 4097, 8, 1, 128, True),
+    "s-65": (2, 65, 65, 8, 2, 128, True),
+    "s-129": (2, 129, 129, 8, 2, 128, True),
+    "sq-77-skv-1000": (2, 77, 1000, 8, 2, 128, True),
+    "full-sq-77-skv-1000": (2, 77, 1000, 8, 2, 128, False),
+    "d64-4096": (1, 4096, 4096, 8, 2, 64, True),
 }
 
 
@@ -211,6 +218,16 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_bit_reproducible(cuda):
+    """No atomics, and an item's arithmetic does not depend on which
+    block takes it: two calls on the same inputs give the same bits."""
+    q, k, v = _attn_inputs(cuda, 2, 1000, 1000, 32, 4, 128, seed=7)
+    outs = [ops.flash_attention(q, k, v) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs)
 
 
 @pytest.mark.gpu
