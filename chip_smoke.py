@@ -7,13 +7,21 @@ Phases, in order; any failure exits non-zero:
   1. device   require CUDA; print the card's name and power limit
   2. build    nvcc-build the port's CUDA kernels from src/repro_torch/
               kernels/csrc (sm_90a), print the build seconds; from
-              ptxas' report, flash_attention's registers, spills (must
-              be 0) and shared memory (must fit a block)
+              ptxas' reports, the registers, spills (must be 0 in
+              flash_attention, select_pack and segment_sum) and shared
+              memory (must fit a block) of each kernel, and the number
+              of select_pack's 16-CTA clusters the card places at once
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shapes and on adversarial inputs
-              (`select_pack` bit for bit). Two times each: `ms`/
-              `plain_ms` are device time from a torch.profiler (CUPTI)
-              trace, the mean over 20 calls after a warm-up call;
+              (`select_pack` bit for bit on both of its paths,
+              `segment_sum_sorted` bit-reproducible). Two times each:
+              `ms`/`plain_ms` are device time from a torch.profiler
+              (CUPTI) trace, the mean over 20 calls after a warm-up call
+              (every device operation of the call; for sigmoid_grad and
+              flash_attention, their kernels by name), with the
+              operations a call runs from the same trace (one kernel and
+              no memset for segment_sum_sorted; at most two kernels and
+              no memset for select_pack at the main path's shape);
               `call_ms`/`plain_call_ms` are the median of 50 single calls
               timed by CUDA events after 5 warm-up calls (host dispatch
               included). Beside them the bound and, where one PyTorch
@@ -107,11 +115,13 @@ def time_ms(torch, fn, iters=50, warmup=5):
     return statistics.median(times)
 
 
-def device_times(torch, fn, iters=20):
+def device_times(torch, fn, iters=20, counts=None):
     """Device time per call of `fn` in ms, by kernel name, from a
     torch.profiler (CUPTI) trace of `iters` calls after one warm-up call.
     Unlike CUDA events around one call, this leaves out the host's
-    dispatch time while the card waits."""
+    dispatch time while the card waits. Every device operation counts:
+    kernels, memsets and copies. With `counts` (a dict), it is filled
+    from the same trace with each operation's launches per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -127,6 +137,8 @@ def device_times(torch, fn, iters=20):
             us = evt.self_cuda_time_total
         if us > 0:
             out[evt.key] = out.get(evt.key, 0.0) + us / iters / 1e3
+            if counts is not None:
+                counts[evt.key] = counts.get(evt.key, 0) + evt.count / iters
     return out
 
 
@@ -145,7 +157,7 @@ def events_ms(torch, fn, iters=50):
     return a.elapsed_time(b) / iters
 
 
-def kernel_and_call_ms(torch, fn, names, iters=50):
+def kernel_and_call_ms(torch, fn, names, iters=50, counts=None):
     """(device ms of the kernels whose names contain one of `names`, or
     of all kernels when `names` is empty; ms of one call by CUDA events).
 
@@ -154,7 +166,9 @@ def kernel_and_call_ms(torch, fn, names, iters=50):
     without the kernels it timed); after that the device ms is
     `events_ms`, and the log says so."""
     for _ in range(3):
-        dev = device_times(torch, fn)
+        if counts is not None:
+            counts.clear()
+        dev = device_times(torch, fn, counts=counts)
         ms = sum(v for k, v in dev.items() if not names
                  or any(n in k for n in names))
         if ms > 0:
@@ -217,8 +231,10 @@ def ptxas_resources(text):
 
 
 def phase_build():
-    """Build the kernels; check flash_attention's resource report: no
-    spills, and its dynamic shared memory within the card's 227 KB."""
+    """Build the kernels; check ptxas' resource reports: no spills in
+    flash_attention, select_pack or segment_sum, flash_attention's dynamic
+    shared memory within the card's 227 KB, and select_pack's cluster
+    (16 CTAs) placeable at the main path's (cap, k)."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -248,7 +264,36 @@ def phase_build():
     require(all(r["dynamic_smem"] + r["smem"] <= SMEM_PER_BLOCK
                 for r in fa.values()),
             f"flash_attention needs more than {SMEM_PER_BLOCK} B: {fa}")
-    return secs, fa
+    res = {"flash_attention": fa}
+    for stem in ("select_pack", "segment_sum"):
+        res[stem] = {}
+        for name, r in ptxas_resources(build.report(stem).read_text()).items():
+            m = re.search(r"\d(select_pack_[a-z]+_kernel|segment_sum_kernel)E",
+                          name)
+            res[stem][m.group(1) if m else name] = r
+            log(f"[build] {stem}.cu {m.group(1) if m else name}: "
+                f"{r['registers']} registers, stack {r['stack']} B, spill "
+                f"stores {r['spill_stores']} B, spill loads "
+                f"{r['spill_loads']} B, static smem {r['smem']} B")
+        require(res[stem] and all(
+            r["spill_stores"] == 0 and r["spill_loads"] == 0
+            for r in res[stem].values()), f"{stem} spills: {res[stem]}")
+    cl = res["select_pack"].get("select_pack_cluster_kernel")
+    require(cl is not None, "no select_pack_cluster_kernel in the report")
+    for k in (13108, 65536):
+        cl[f"dynamic_smem_k{k}"] = lib.repro_select_pack_cluster_smem(
+            1 << 18, k)
+        cl[f"max_active_clusters_k{k}"] = \
+            lib.repro_select_pack_max_clusters(1 << 18, k)
+        log(f"[build] select_pack cluster path at (cap, k) = (262144, {k}):"
+            f" {lib.repro_select_pack_cluster_size()} CTAs a row, dynamic "
+            f"smem {cl[f'dynamic_smem_k{k}']} B a CTA, at most "
+            f"{cl[f'max_active_clusters_k{k}']} such clusters at once "
+            "(cudaOccupancyMaxActiveClusters)")
+        require(cl[f"max_active_clusters_k{k}"] >= 1
+                and cl[f"dynamic_smem_k{k}"] + cl["smem"] <= SMEM_PER_BLOCK,
+                f"select_pack's cluster does not fit the card: {cl}")
+    return secs, res
 
 
 def make_batches(spec_kw, n, start=0):
@@ -292,9 +337,12 @@ def _sg_entry(torch, dev, batch, results):
 
 
 def _timed(torch, entry, kernel_fn, names, plain_fn):
-    """Fill an entry's device times (profiler) and call times (events)."""
-    entry["ms"], entry["call_ms"] = kernel_and_call_ms(torch, kernel_fn,
-                                                       names)
+    """Fill an entry's device times (profiler) and call times (events), and
+    from the kernel's trace its device operations per call."""
+    ops_per_call = {}
+    entry["ms"], entry["call_ms"] = kernel_and_call_ms(
+        torch, kernel_fn, names, counts=ops_per_call)
+    entry["ops_per_call"] = ops_per_call
     entry["plain_ms"], entry["plain_call_ms"] = kernel_and_call_ms(
         torch, plain_fn, ())
 
@@ -304,12 +352,14 @@ def _run_mass(ref, ids, g):
     return ref.segment_sum_sorted_ref(ids, g.abs())
 
 
-def _seg_case(torch, name, ids, g, exact):
+def _seg_case(torch, name, ids, g, exact, calls=2):
+    """segment_sum_sorted against its plain version, and `calls` calls
+    bit-identical."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.segment_sum import segment_sum_sorted
 
-    got = segment_sum_sorted(ids, g)
-    again = segment_sum_sorted(ids, g)
+    outs = [segment_sum_sorted(ids, g) for _ in range(calls)]
+    got = outs[0]
     want = ref.segment_sum_sorted_ref(ids, g)
     torch.cuda.synchronize()
     d = (got - want).abs()
@@ -320,11 +370,12 @@ def _seg_case(torch, name, ids, g, exact):
     else:
         ok = bool((d <= 1e-5 + 1e-6 * _run_mass(ref, ids, g)).all())
         tol = "1e-5 + 1e-6 * sum|g| over the run"
-    repro = bool(torch.equal(got, again))
+    repro = all(bool(torch.equal(got, o)) for o in outs[1:])
     runs = int(((ids[1:] != ids[:-1]) & (ids[1:] >= 0)).sum()) + \
         int(ids.numel() > 0 and ids[0] >= 0)
     log(f"[kernels] segment_sum_sorted {name}: N={ids.numel()} runs={runs} "
-        f"max|d|={err:.3e} (tol {tol}) ok={ok} bit-reproducible={repro}")
+        f"max|d|={err:.3e} (tol {tol}) ok={ok}; {calls} calls "
+        f"bit-identical={repro}")
     require(ok, f"segment_sum_sorted disagrees on {name}")
     require(repro, f"segment_sum_sorted not reproducible on {name}")
     return err
@@ -336,15 +387,78 @@ def _sorted_last_pad(torch, ids_flat):
     return torch.where(key_s == 2 ** 31 - 1, -1, key_s).contiguous()
 
 
+def path_routing(torch, dev, batch, hot):
+    """The main path's routing of one batch at 2^27 (P = 1): (config, the
+    batch's flat ids, hot split, routing)."""
+    from repro_torch.configs import DPMRConfig
+    from repro_torch.core import dpmr, hot_sharding, sparse
+
+    cfg = DPMRConfig(num_features=1 << LOG2_F, max_features_per_sample=K)
+    ids = torch.from_numpy(batch["ids"]).to(dev).reshape(-1)
+    hot_slot, is_hot, cold_ids = hot_sharding.split_hot(ids, hot)
+    routing = sparse.route_build(cold_ids, 1, 1 << LOG2_F,
+                                 dpmr.capacity(cfg, BATCH))
+    return cfg, ids, (hot_slot, is_hot), routing
+
+
+def path_segment_inputs(torch, dev, path_req):
+    """segment_sum_sorted's input on the main path: the sorted request ids
+    of a real batch (at P = 1 every run has length 1: route_build
+    deduplicates per source) and N(0, 1) grads; and the generator, to draw
+    more inputs from."""
+    rng = np.random.default_rng(SEED + 1)
+    path_ids = _sorted_last_pad(torch, path_req.reshape(-1))
+    path_g = torch.from_numpy(rng.normal(size=path_req.numel()).astype(
+        np.float32)).to(dev)
+    return path_ids, path_g, rng
+
+
+def path_select_inputs(torch, dev, routing):
+    """select_pack's input on the main path: the routed send buffer of a
+    real batch's gradients, a carry from earlier steps on half the live
+    slots, and k at TOPK_FRAC; and the generator."""
+    from repro_torch.core import sparse
+    from repro_torch.optim import compression
+
+    rng = np.random.default_rng(SEED + 3)
+
+    def tensor(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    ids = routing.req_ids
+    live = ids >= 0
+    g = tensor(rng.normal(scale=1.0 / BATCH, size=routing.order.numel())
+               .astype(np.float32))
+    send = sparse.combine_grads(routing, g)
+    carry = torch.where(live & tensor(rng.random(ids.shape) < 0.5),
+                        tensor(rng.normal(scale=0.5 / BATCH, size=ids.shape)
+                               .astype(np.float32)), 0.0)
+    return send, ids, carry, compression.topk_count(ids.shape[1],
+                                                    TOPK_FRAC), rng
+
+
+def _one_launch(torch, name, entry, max_kernels):
+    """From the timed trace: at most `max_kernels` kernels a call and no
+    memset."""
+    got = entry["ops_per_call"]
+    memsets = {k: v for k, v in got.items() if "memset" in k.lower()}
+    kernels = {k: v for k, v in got.items() if k not in memsets}
+    log(f"[kernels] {name}: device operations a call, from the timed trace: "
+        f"{json.dumps(got)}")
+    require(got and not memsets and sum(kernels.values()) <= max_kernels,
+            f"{name} runs {got} a call: at most {max_kernels} kernels and no "
+            "memset allowed")
+
+
 def _seg_entries(torch, dev, batch, path_req, results):
     """segment_sum_sorted at the path's N and on adversarial inputs, and
     owner_accumulate at the path's shape."""
     from repro_torch.core import sparse
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.segment_sum import segment_sum_sorted
 
-    rng = np.random.default_rng(SEED + 1)
     n = path_req.numel()
+    path_ids, path_g, rng = path_segment_inputs(torch, dev, path_req)
 
     def normal(m):
         return torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(dev)
@@ -353,10 +467,6 @@ def _seg_entries(torch, dev, batch, path_req, results):
         return torch.from_numpy(
             rng.integers(-8, 9, size=m).astype(np.float32)).to(dev)
 
-    # the main path's input: the sorted request ids of a real batch (at
-    # P = 1 every run has length 1: route_build deduplicates per source)
-    path_ids = _sorted_last_pad(torch, path_req.reshape(-1))
-    path_g = normal(n)
     err = _seg_case(torch, "path (sorted requests)", path_ids, path_g, False)
     # the raw Zipf batch sorted: head features make runs over many tiles
     zipf_ids = _sorted_last_pad(
@@ -377,8 +487,32 @@ def _seg_entries(torch, dev, batch, path_req, results):
         np.sort(rng.integers(0, 50, size=m - 700)),
         np.full(700, -1)]).astype(np.int32)).to(dev)
     _seg_case(torch, "ragged N, 50 runs", ragged, integer(m), True)
+    # the look-back: f32 runs over thousands of tiles, 5 calls
+    big = 1 << 22
+    long_runs = torch.from_numpy(np.concatenate([
+        np.sort(rng.integers(0, 7, size=big - 4321)),
+        np.full(4321, -1)]).astype(np.int32)).to(dev)
+    _seg_case(torch, "N = 2^22, 7 runs over 2048 tiles, f32", long_runs,
+              normal(big), False, calls=5)
+    tile = build.library().repro_segment_sum_tile_size()
+    _seg_case(torch, f"runs end at the {tile}-slot tile edges", torch.arange(
+        n, device=dev, dtype=torch.int32) // tile, normal(n), False, calls=5)
+    for m in (n + 1, n - 1):
+        ids_m = torch.from_numpy(np.concatenate([
+            np.sort(rng.integers(0, 40, size=m - 500)),
+            np.full(500, -1)]).astype(np.int32)).to(dev)
+        _seg_case(torch, f"N = {tile} x {n // tile} {m - n:+d}", ids_m,
+                  integer(m), True)
+    _seg_case(torch, "alternating length-1 runs", torch.arange(
+        n, device=dev, dtype=torch.int32), normal(n), False, calls=5)
+    _seg_case(torch, "runs of length 1 and 2 in turn", (2 * torch.arange(
+        n, device=dev, dtype=torch.int32)) // 3, integer(n), True)
 
-    bms, by = bound(12 * n, n)
+    # bound: read ids and write out once a slot (8 B), read grads only at
+    # live slots (padding needs none, 4 B); one f32 add a live slot
+    n_live = int((path_ids >= 0).sum())
+    bms, by = bound(8 * n + 4 * n_live, n_live)
+    log(f"[kernels] segment_sum_sorted bound: N = {n}, {n_live} live")
     results["segment_sum_sorted"] = {
         "name": "segment_sum_sorted", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
@@ -386,9 +520,10 @@ def _seg_entries(torch, dev, batch, path_req, results):
         "launches": None, "max_abs_err": err, "bound_ms": bms,
         "bound_by": by, "library_ms": None}
     _timed(torch, results["segment_sum_sorted"],
-           lambda: segment_sum_sorted(path_ids, path_g),
-           ("segment_tile_kernel", "segment_carry_kernel"),
+           lambda: segment_sum_sorted(path_ids, path_g), (),
            lambda: ref.segment_sum_sorted_ref(path_ids, path_g))
+    _one_launch(torch, "segment_sum_sorted", results["segment_sum_sorted"],
+                1)
 
     # owner_accumulate as the reduce calls it: (1, cap) received slots
     # into the 2^27-row owner block
@@ -430,8 +565,11 @@ def _select_case(torch, name, send, ids, carry, k):
     want = ref.select_pack_ref(send, ids, carry, k)
     torch.cuda.synchronize()
     ok = all(_same_bits(torch, g, w) for g, w in zip(got, want))
-    err = max(float((g.float() - w.float()).abs().max()) if g.numel()
-              else 0.0 for g, w in zip(got, want))
+    # |d| where the bits differ (inf where one side is NaN)
+    err = max(float(torch.where(
+        g.view(torch.int32) == w.view(torch.int32), 0.0,
+        (g.float() - w.float()).abs()).nan_to_num(float("inf")).max())
+        if g.numel() else 0.0 for g, w in zip(got, want))
     live = int((ids >= 0).sum())
     log(f"[kernels] select_pack {name}: (P, cap)={tuple(ids.shape)} k={k} "
         f"live={live} max|d|={err:.3e} bit-exact={ok}")
@@ -443,31 +581,40 @@ def _select_entries(torch, dev, routing, results):
     """select_pack at the path's shape, from a real batch's routed send
     buffer at 2^27, for k at topk_frac 0.05 and 0.25, and on adversarial
     rows; timed at the path's k against torch.topk of the same key."""
-    from repro_torch.core import sparse
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import select_pack as sp
     from repro_torch.kernels.select_pack import select_pack
     from repro_torch.optim import compression
-
-    rng = np.random.default_rng(SEED + 3)
 
     def tensor(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    ids = routing.req_ids
+    send, ids, carry, k, rng = path_select_inputs(torch, dev, routing)
     p, cap = ids.shape
     live = ids >= 0
-    g = tensor(rng.normal(scale=1.0 / BATCH, size=routing.order.numel())
-               .astype(np.float32))
-    send = sparse.combine_grads(routing, g)
-    # a carry from earlier steps: a residual on half the live slots
-    carry = torch.where(live & tensor(rng.random(ids.shape) < 0.5),
-                        tensor(rng.normal(scale=0.5 / BATCH, size=ids.shape)
-                               .astype(np.float32)), 0.0)
-    k = compression.topk_count(cap, TOPK_FRAC)
+    k25 = compression.topk_count(cap, 0.25)
+    # the kernel's own path rule, which the wrapper follows
+    rule = build.library().repro_select_pack_uses_cluster
+    require(rule(cap, k) and rule(cap, k25),
+            f"the main path's select_pack at k = {k}, {k25} is not on the "
+            "cluster path")
     err = _select_case(torch, "path (routed send, frac 0.05)", send, ids,
                        carry, k)
     _select_case(torch, "path (routed send, frac 0.25)", send, ids,
-                 carry, compression.topk_count(cap, 0.25))
+                 carry, k25)
+    # k on each side of the path rule's boundary at this cap
+    lo_k, hi_k = k, cap
+    while hi_k - lo_k > 1:
+        mid = (lo_k + hi_k) // 2
+        lo_k, hi_k = (mid, hi_k) if rule(cap, mid) else (lo_k, mid)
+    _select_case(torch, f"path, k = {lo_k} (the cluster path's largest)",
+                 send, ids, carry, lo_k)
+    require(not rule(cap, hi_k), "no large path past the rule")
+    require(sp.uses_cluster(cap, lo_k) and not sp.uses_cluster(cap, hi_k),
+            f"the Python copy of the path rule (select_pack.uses_cluster) "
+            f"does not switch at the kernel's k = {lo_k}/{hi_k}")
+    _select_case(torch, f"path, k = {hi_k} (the large path)", send, ids,
+                 carry, hi_k)
 
     def case(p_, cap_, nlive, seed, prefix=True):
         r = np.random.default_rng(seed)
@@ -501,19 +648,54 @@ def _select_entries(torch, dev, routing, results):
                  *case(8, 4104, 3000, 5), 411)
     _select_case(torch, "ragged cap 5001", *case(2, 5001, 4000, 6,
                                                       prefix=False), 2501)
+    _select_case(torch, "cap 100003 (not a multiple of the 2048-slot chunk)",
+                 *case(1, 100003, 60000, 7, prefix=False), 5000)
+    _select_case(torch, "k > live, dead slots between live ones",
+                 *case(1, 50000, 20000, 8, prefix=False), 30000)
+    _select_case(torch, "P = 8, cap 32768", *case(8, 32768, 6000, 9), 3000)
+    s_, i_, c_ = case(1, cap, cap, 10)
+    _select_case(torch, f"all keys equal, cap {cap}", torch.full_like(
+        s_, -0.25), i_, torch.zeros_like(c_), 100000)
+    # |comp| = 1.0 at positions 2000..3500 of a cap-40,000 row straddle the
+    # edge between the cluster's first two chunks (CTAs 0 and 1); 300
+    # larger values win first, then 700 ties
+    s_, i_, c_ = case(1, 40000, 40000, 11)
+    s_ = s_.clamp(-0.5, 0.5)
+    s_[0, 2000:3501] = tensor(np.where(np.arange(1501) % 2, 1.0, -1.0)
+                              .astype(np.float32))
+    c_[0, 2000:3501] = 0.0
+    s_[0, 10000:10300] = 3.0 + torch.arange(300, device=dev)
+    require(2000 < sp.CLUSTER_CHUNK < 3501, "ties miss the chunk edge")
+    _select_case(torch, "ties at the threshold across a chunk edge", s_, i_,
+                 c_, 1000)
+    s_, i_, c_ = case(2, 3000, 2800, 12, prefix=False)
+    s_[0, [5, 700, 2999]] = float("nan")
+    _select_case(torch, "NaN", s_, i_, c_, 400)
 
-    # bound: read send, ids, carry and write resid (16 B a slot), write
-    # the k (value, id) pairs (8 B each); one f32 add a slot
-    bms, by = bound(16 * p * cap + 8 * p * k, p * cap)
+    # bound: read ids and write resid once a slot (8 B), read send and
+    # carry only at live slots (a dead slot's comp is 0, 8 B), write the k
+    # (value, id) pairs (8 B each); one f32 add a live slot
+    n_live = int(live.sum())
+    bms, by = bound(8 * p * cap + 8 * n_live + 8 * p * k, n_live)
+    log(f"[kernels] select_pack bound: (P, cap) = {(p, cap)}, {n_live} "
+        f"live, k = {k}")
     entry = results["select_pack"] = {
         "name": "select_pack", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/select_pack.cu",
         "replaces": "src/repro/kernels/select_pack.py:89",
         "launches": None, "max_abs_err": err, "bound_ms": bms,
         "bound_by": by}
-    _timed(torch, entry, lambda: select_pack(send, ids, carry, k),
-           ("select_pack_",),
+    _timed(torch, entry, lambda: select_pack(send, ids, carry, k), (),
            lambda: ref.select_pack_ref(send, ids, carry, k))
+    _one_launch(torch, f"select_pack at (1, {cap}), k={k}", entry, 2)
+    # the main path at topk_frac 0.25, and the large path at this row
+    for tag, kk in (("k65536", k25), ("large_path", hi_k)):
+        got = {}
+        entry[f"{tag}_ms"], _ = kernel_and_call_ms(
+            torch, lambda: select_pack(send, ids, carry, kk), (), counts=got)
+        entry[f"{tag}_ops_per_call"] = got
+        log(f"[kernels] select_pack at (1, {cap}), k={kk}: device ms="
+            f"{entry[f'{tag}_ms']:.5f}; a call runs {json.dumps(got)}")
     key = torch.where(live, (send + carry).abs(), -1.0)
     entry["library_ms"], entry["library_call_ms"] = kernel_and_call_ms(
         torch, lambda: torch.topk(key, k, dim=1, sorted=True), ())
@@ -522,16 +704,12 @@ def _select_entries(torch, dev, routing, results):
 
 
 def phase_kernels(torch, dev, batch, hot):
-    from repro_torch.core import dpmr, hot_sharding, sparse
-    from repro_torch.configs import DPMRConfig
+    from repro_torch.core import dpmr, sparse
 
     results = {}
     _sg_entry(torch, dev, batch, results)
-    cfg = DPMRConfig(num_features=1 << LOG2_F, max_features_per_sample=K)
-    cap = dpmr.capacity(cfg, BATCH)
-    ids = torch.from_numpy(batch["ids"]).to(dev).reshape(-1)
-    hot_slot, is_hot, cold_ids = hot_sharding.split_hot(ids, hot)
-    routing = sparse.route_build(cold_ids, 1, 1 << LOG2_F, cap)
+    cfg, ids, (hot_slot, is_hot), routing = path_routing(torch, dev, batch,
+                                                         hot)
     _seg_entries(torch, dev, batch, routing.req_ids, results)
     _select_entries(torch, dev, routing, results)
 
@@ -1165,7 +1343,7 @@ def main():
 
     smi = phase_device(torch)
     dev = torch.device("cuda")
-    build_s, fa_resources = phase_build()
+    build_s, resources = phase_build()
     from repro_torch.api import hot_ids_from_corpus
 
     spec = dict(num_features=1 << LOG2_F, features_per_sample=K,
@@ -1204,7 +1382,7 @@ def main():
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build_s": build_s,
-         "flash_attention_resources": fa_resources, "kernels": kernels,
+         "kernel_resources": resources, "kernels": kernels,
          "owner_accumulate": results["owner_accumulate"],
          "reduces": results["reduces"],
          "engine": engine, "parity": parity, "serve": served,

@@ -116,12 +116,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_sigmoid_grad_f32.restype = i
     lib.repro_segment_sum_tile_size.argtypes = []
     lib.repro_segment_sum_tile_size.restype = i
-    lib.repro_segment_sum_sorted_f32.argtypes = [p, p, p, p, p, p, ll, p]
+    u = ctypes.c_uint
+    lib.repro_segment_sum_sorted_f32.argtypes = [p, p, p, p, p, u, u, ll, p]
     lib.repro_segment_sum_sorted_f32.restype = i
-    lib.repro_select_pack_tile_size.argtypes = []
-    lib.repro_select_pack_tile_size.restype = i
-    lib.repro_select_pack_radix.argtypes = []
-    lib.repro_select_pack_radix.restype = i
+    for name in ("tile_size", "radix", "cluster_size"):
+        getattr(lib, f"repro_select_pack_{name}").argtypes = []
+        getattr(lib, f"repro_select_pack_{name}").restype = i
+    lib.repro_select_pack_cluster_smem.argtypes = [i, i]
+    lib.repro_select_pack_cluster_smem.restype = ll
+    lib.repro_select_pack_uses_cluster.argtypes = [i, i]
+    lib.repro_select_pack_uses_cluster.restype = i
+    lib.repro_select_pack_max_clusters.argtypes = [i, i]
+    lib.repro_select_pack_max_clusters.restype = i
     lib.repro_select_pack_f32.argtypes = [p] * 12 + [i, i, i, p]
     lib.repro_select_pack_f32.restype = i
     lib.repro_flash_attention_bf16.argtypes = [

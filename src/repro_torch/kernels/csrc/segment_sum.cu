@@ -6,41 +6,68 @@
 // grads (N,) f32. Output (N,) f32: each run's total at the run's LAST slot,
 // 0 everywhere else. Padding contributes nothing and ends no run.
 //
-// What bounds it on this card: memory. ids and grads are read once and out
-// written once, one add per element: 12 bytes per slot, ~3.1 MB at the main
-// path's N = 262,144, a ~1 us floor at 3.35 TB/s, below the cost of the
-// two launches.
+// What bounds it on this card: memory, in principle. ids are read and out
+// written once a slot, and grads read once a live slot (padding needs none),
+// one add per live slot: 8 bytes a slot plus 4 a live one, ~2.2 MB at the
+// main path's N = 262,144 with ~27,400 live, a ~0.66 us floor at 3.35 TB/s.
+// At that size one launch and the latency of a block's load, scan and
+// look-back are most of the cost, so the design is ONE launch:
 //
 // The TPU kernel carries a run's partial total from one grid step to the
 // next in SMEM, because its grid runs in order on one core. Blocks on
-// Hopper run in parallel and in no order, so the carry is rebuilt as a
-// segmented scan in two passes:
-//  pass 1 (one block per 1024-slot tile): a segmented inclusive scan with
-//    run-head flags, in registers within a thread, with warp shuffles
-//    within a warp and through shared memory across the tile's warps. It
-//    writes the in-tile partial total at every run end (the next id is
-//    read across the tile boundary), records the tile's aggregate (does a
-//    run start in it, and the sum since its last run start) and the slot
-//    of the first run end that belongs to the run entering the tile from
-//    the left.
-//  pass 2 (one block): resolves, in tile order, the carry entering each
-//    tile from the tiles before it (an exclusive segmented scan of the
-//    tile aggregates) and adds it at that one run end per tile.
-// Every addition happens in a fixed order and no float atomics are used,
-// so the output is bit-reproducible from run to run. The order differs
-// from a sequential sum, so it agrees with the plain version to within
-// f32 rounding of the run totals, not bit for bit.
+// Hopper run in parallel and in no order, so the carry is a single-pass
+// segmented scan with a decoupled look-back:
+//  - tiles of 2,048 slots (N = 262,144 is 128 tiles, one wave on 132 SMs),
+//    handed out by an atomic ticket, not by blockIdx: a tile only waits on
+//    tiles whose blocks already hold a ticket, so are resident (no deadlock);
+//  - a block of 512 threads loads its tile with 16-byte loads into shared
+//    memory, so the run-end test reads the next id there (only the id past
+//    the tile's right edge comes from global memory), then scans it: a
+//    segmented inclusive scan with run-head flags, in registers within a
+//    thread (4 slots), by warp shuffles within a warp, and through shared
+//    memory across warps;
+//  - it publishes the tile's aggregate (does a run start in it, the sum
+//    since its last run start) and later its inclusive prefix as one 64-bit
+//    status word (epoch, head, flag | f32 sum). Flag and value share the
+//    word, so relaxed stores and loads suffice, with no memory fence;
+//  - look-back: warp 0 reads the 32 nearest predecessors' words and takes
+//    the nearest STOP, a tile that published its inclusive prefix or whose
+//    aggregate starts a run (head = 1 resets the carry, so nothing before
+//    it matters). It folds that value and the aggregates between it and
+//    the tile strictly left to right with the segmented-sum operator. That
+//    is the f32 sequence of a sequential fold over all tiles, so the bits
+//    do not depend on which predecessors had published when the warp
+//    looked (textbook look-back reduces whatever window it finds, and its
+//    bits depend on timing). Without a stop in the window it polls again:
+//    the tile just before it publishes its prefix in finite time. At the
+//    main path's P = 1 every run has length 1, so every aggregate starts a
+//    run and the look-back is one step;
+//  - while warp 0 looks back, the other threads store every run total that
+//    does not need the carry; only the run entering the tile from the left
+//    waits for it.
+// The status words are never zeroed on the call path: each word carries
+// the call's epoch (29 bits), and a word of another epoch reads as
+// unpublished; the ticket counter is never reset either, the wrapper passes
+// the count it starts at. Both live in a buffer the wrapper keeps per
+// stream. Every addition happens in a fixed order and no float atomics are
+// used, so the output is bit-identical from call to call. The order
+// differs from a sequential sum, so it agrees with the plain version to
+// within f32 rounding of the run totals, not bit for bit.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / kWarp;
 constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;
-constexpr int kCarryChunk = 1024;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kAggregate = 1u;
+constexpr unsigned kInclusive = 2u;
+constexpr int kEpochBits = 29;
+static_assert(kItems % 4 == 0, "whole 16-byte vectors a thread");
 
 // A span of slots under the segmented-sum operator: `head` says a run
 // starts inside the span, `sum` is the total since the span's last run
@@ -70,46 +97,148 @@ __device__ __forceinline__ Seg shift_exclusive(Seg inc, int lane) {
   return lane == 0 ? Seg{0, 0.0f} : Seg{h, s};
 }
 
-__global__ void segment_tile_kernel(const int* __restrict__ ids,
-                                    const float* __restrict__ grads,
-                                    float* __restrict__ out,
-                                    int* __restrict__ tile_head,
-                                    float* __restrict__ tile_sum,
-                                    int* __restrict__ lead_end,
-                                    long long n) {
+// status word: high half (epoch << 3) | (head << 2) | flag, low half sum
+__device__ __forceinline__ unsigned long long pack(unsigned epoch,
+                                                   unsigned flag, Seg s) {
+  const unsigned hi = (epoch << 3) | ((unsigned)s.head << 2) | flag;
+  return ((unsigned long long)hi << 32) | __float_as_uint(s.sum);
+}
+
+// A status word carries its flag and its value in one 64-bit access, so
+// relaxed stores and loads suffice: no fence orders anything else.
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The carry entering `tile`: the fold of every earlier tile's aggregate,
+// as a sequential left fold would give it. Called by warp 0 only.
+__device__ Seg look_back(const unsigned long long* status, int tile,
+                         unsigned epoch, int lane) {
+  const int pred = tile - 1 - lane;
+  for (;;) {
+    unsigned long long w = 0;
+    if (pred >= 0) {
+      do {
+        w = load_status(&status[pred]);
+      } while ((unsigned)(w >> 35) != epoch);
+    }
+    const unsigned hi = (unsigned)(w >> 32);
+    const bool stop = pred >= 0 && ((hi & 3u) == kInclusive || (hi & 4u));
+    const unsigned stops = __ballot_sync(kFull, stop);
+    if (stops) {
+      const int at = __ffs(stops) - 1;
+      const int head = (int)((hi >> 2) & 1u);
+      const float sum = __uint_as_float((unsigned)w);
+      Seg c{__shfl_sync(kFull, head, at), __shfl_sync(kFull, sum, at)};
+      // the aggregates after the stop, oldest first
+      for (int l = at - 1; l >= 0; --l)
+        c = combine(c, Seg{__shfl_sync(kFull, head, l),
+                           __shfl_sync(kFull, sum, l)});
+      return c;
+    }
+    __nanosleep(64);
+  }
+}
+
+// The carry that warp 0's look-back left in shared memory, once it is there.
+__device__ __forceinline__ float wait_carry(const int* ready,
+                                            const float* sum) {
+  while (*(const volatile int*)ready == 0) {
+  }
+  __threadfence_block();
+  return *(const volatile float*)sum;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    segment_sum_kernel(const int* __restrict__ ids,
+                       const float* __restrict__ grads,
+                       float* __restrict__ out,
+                       unsigned long long* __restrict__ status,
+                       unsigned* __restrict__ ticket, unsigned ticket_base,
+                       unsigned epoch, long long n, int vec) {
+  __shared__ __align__(16) int s_ids[kTile];
+  __shared__ __align__(16) float s_val[kTile];
   __shared__ int s_head[kWarps];
   __shared__ float s_sum[kWarps];
-  __shared__ int s_tot_head;
-  __shared__ float s_tot_sum;
-  __shared__ long long s_lead;
+  __shared__ int s_tile, s_prev, s_next, s_ready;
+  __shared__ float s_carry_sum;
 
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const long long base =
-      (long long)blockIdx.x * kTile + (long long)threadIdx.x * kItems;
-  if (threadIdx.x == 0) s_lead = -1;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  if (tid == 0) {
+    s_tile = (int)(atomicAdd(ticket, 1u) - ticket_base);
+    s_ready = 0;
+  }
+  __syncthreads();
+  const int tile = s_tile;
+  const long long base = (long long)tile * kTile;
+  const long long left = n - base;
+  const bool full = vec && left >= kTile;
+  if (full) {
+#pragma unroll
+    for (int r = 0; r < kItems / 4; ++r) {
+      const int q = r * kThreads + tid;
+      const int4 a = reinterpret_cast<const int4*>(ids + base)[q];
+      const float4 g = reinterpret_cast<const float4*>(grads + base)[q];
+      reinterpret_cast<int4*>(s_ids)[q] = a;
+      reinterpret_cast<float4*>(s_val)[q] = g;
+    }
+  } else {
+    for (int j = tid; j < kTile; j += kThreads) {
+      const bool in = j < left;
+      s_ids[j] = in ? ids[base + j] : -1;
+      s_val[j] = in ? grads[base + j] : 0.0f;
+    }
+  }
+  if (tid == 0) {
+    s_prev = base > 0 ? ids[base - 1] : -1;
+    s_next = left > kTile ? ids[base + kTile] : -1;
+  }
+  __syncthreads();
 
+  // this thread's kItems consecutive slots
+  const int j0 = tid * kItems;
   int id[kItems];
+  float v[kItems];
+#pragma unroll
+  for (int q = 0; q < kItems / 4; ++q) {
+    const int4 a = reinterpret_cast<const int4*>(s_ids)[j0 / 4 + q];
+    const float4 f = reinterpret_cast<const float4*>(s_val)[j0 / 4 + q];
+    id[4 * q] = a.x;
+    id[4 * q + 1] = a.y;
+    id[4 * q + 2] = a.z;
+    id[4 * q + 3] = a.w;
+    v[4 * q] = f.x;
+    v[4 * q + 1] = f.y;
+    v[4 * q + 2] = f.z;
+    v[4 * q + 3] = f.w;
+  }
+  const int next_edge = j0 + kItems < kTile ? s_ids[j0 + kItems] : s_next;
+  int prev = j0 == 0 ? s_prev : s_ids[j0 - 1];
   float local[kItems];
   int seen[kItems];
   Seg agg{0, 0.0f};
-  int prev = base > 0 && base - 1 < n ? ids[base - 1] : -1;
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
-    const long long i = base + j;
-    int head = 1;
-    float v = 0.0f;
-    id[j] = -1;
-    if (i < n) {
-      id[j] = ids[i];
-      const bool valid = id[j] >= 0;
-      v = valid ? grads[i] : 0.0f;
-      head = (i == 0) || !valid || id[j] != prev;
-      prev = id[j];
-    }
-    agg = combine(agg, Seg{head, v});
+    const bool valid = id[j] >= 0;
+    const int head = (base + j0 + j == 0) || !valid || id[j] != prev;
+    agg = combine(agg, Seg{head, valid ? v[j] : 0.0f});
     local[j] = agg.sum;
     seen[j] = agg.head;
+    prev = id[j];
   }
 
   // tile-wide exclusive scan of the thread aggregates
@@ -120,73 +249,63 @@ __global__ void segment_tile_kernel(const int* __restrict__ ids,
     s_sum[warp] = inc.sum;
   }
   __syncthreads();
+  Seg tot{0, 0.0f};
   if (warp == 0) {
     const Seg w = lane < kWarps ? Seg{s_head[lane], s_sum[lane]}
                                 : Seg{0, 0.0f};
     const Seg w_inc = warp_inclusive_scan(w, lane);
     const Seg w_ex = shift_exclusive(w_inc, lane);
+    tot = Seg{__shfl_sync(kFull, w_inc.head, kWarps - 1),
+              __shfl_sync(kFull, w_inc.sum, kWarps - 1)};
     if (lane < kWarps) {
       s_head[lane] = w_ex.head;
       s_sum[lane] = w_ex.sum;
     }
-    if (lane == kWarps - 1) {
-      s_tot_head = w_inc.head;
-      s_tot_sum = w_inc.sum;
-    }
+    if (lane == 0)
+      store_status(&status[tile],
+                    pack(epoch, tile == 0 ? kInclusive : kAggregate, tot));
   }
   __syncthreads();
+  // the exclusive prefix of this thread's slots within the tile
   const Seg ex = combine(Seg{s_head[warp], s_sum[warp]}, ex_in_warp);
+  if (warp == 0 && tile > 0) {
+    // look back for the carry entering the tile, while the other warps
+    // write every total that does not need it
+    const Seg carry = look_back(status, tile, epoch, lane);
+    if (lane == 0) {
+      store_status(&status[tile],
+                    pack(epoch, kInclusive, combine(carry, tot)));
+      s_carry_sum = carry.sum;
+      __threadfence_block();
+      *(volatile int*)&s_ready = 1;
+    }
+  }
 
+  float res[kItems];
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
-    const long long i = base + j;
-    if (i >= n) break;
-    const float total = seen[j] ? local[j] : ex.sum + local[j];
-    int next;
-    if (j + 1 < kItems)
-      next = i + 1 < n ? id[j + 1] : -1;
-    else
-      next = i + 1 < n ? ids[i + 1] : -1;
-    const bool is_end = id[j] >= 0 && (i + 1 == n || next != id[j]);
-    out[i] = is_end ? total : 0.0f;
-    if (is_end && !(seen[j] || ex.head)) s_lead = i;
+    const int next = j + 1 < kItems ? id[j + 1] : next_edge;
+    const bool is_end = id[j] >= 0 && next != id[j];
+    float total = local[j];
+    if (is_end && !seen[j]) {
+      // the run started before this thread's slots: add the prefix, and
+      // for the run entering the tile the carry, as combine(carry, ex)
+      total = ex.head ? ex.sum + local[j]
+                      : (wait_carry(&s_ready, &s_carry_sum) + ex.sum) +
+                            local[j];
+    }
+    res[j] = is_end ? total : 0.0f;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    tile_head[blockIdx.x] = s_tot_head;
-    tile_sum[blockIdx.x] = s_tot_sum;
-    lead_end[blockIdx.x] = (int)s_lead;
-  }
-}
-
-__global__ void segment_carry_kernel(const int* __restrict__ tile_head,
-                                     const float* __restrict__ tile_sum,
-                                     const int* __restrict__ lead_end,
-                                     float* __restrict__ out,
-                                     int num_tiles) {
-  __shared__ int s_head[kCarryChunk];
-  __shared__ float s_sum[kCarryChunk];
-  __shared__ float s_carry[kCarryChunk];
-  float running = 0.0f;   // carry entering the chunk; thread 0 only
-  for (int c0 = 0; c0 < num_tiles; c0 += kCarryChunk) {
-    const int cnt = min(kCarryChunk, num_tiles - c0);
-    for (int t = threadIdx.x; t < cnt; t += blockDim.x) {
-      s_head[t] = tile_head[c0 + t];
-      s_sum[t] = tile_sum[c0 + t];
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int t = 0; t < cnt; ++t) {
-        s_carry[t] = running;
-        running = s_head[t] ? s_sum[t] : running + s_sum[t];
-      }
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < cnt; t += blockDim.x) {
-      const int e = lead_end[c0 + t];
-      if (e >= 0) out[e] += s_carry[t];
-    }
-    __syncthreads();
+  if (full) {
+#pragma unroll
+    for (int q = 0; q < kItems / 4; ++q)
+      reinterpret_cast<float4*>(out + base + j0)[q] =
+          make_float4(res[4 * q], res[4 * q + 1], res[4 * q + 2],
+                      res[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j)
+      if (j0 + j < left) out[base + j0 + j] = res[j];
   }
 }
 
@@ -194,20 +313,26 @@ __global__ void segment_carry_kernel(const int* __restrict__ tile_head,
 
 extern "C" int repro_segment_sum_tile_size() { return kTile; }
 
-// scratch: tile_head (int32), tile_sum (f32), lead_end (int32), each
-// ceil(n / tile) long. n < 2^31.
+// status: ceil(n / tile) 64-bit words; ticket: one 32-bit counter. Both
+// persist between calls and are never zeroed here: `epoch` (1 <= epoch <
+// 2^29) must differ from the epoch of any word already in `status`, and
+// `ticket_base` is the counter's value before this call (it advances by the
+// number of tiles). Calls that share them must be ordered (one stream).
+// n < 2^31.
 extern "C" int repro_segment_sum_sorted_f32(const int* ids, const float* grads,
-                                            float* out, int* tile_head,
-                                            float* tile_sum, int* lead_end,
-                                            long long n, void* stream) {
+                                            float* out,
+                                            unsigned long long* status,
+                                            unsigned* ticket,
+                                            unsigned ticket_base,
+                                            unsigned epoch, long long n,
+                                            void* stream) {
   if (n <= 0) return 0;
+  if (epoch == 0 || epoch >= (1u << kEpochBits))
+    return (int)cudaErrorInvalidValue;
   const int tiles = (int)((n + kTile - 1) / kTile);
-  cudaStream_t s = (cudaStream_t)stream;
-  segment_tile_kernel<<<tiles, kThreads, 0, s>>>(ids, grads, out, tile_head,
-                                                 tile_sum, lead_end, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  segment_carry_kernel<<<1, kThreads, 0, s>>>(tile_head, tile_sum, lead_end,
-                                              out, tiles);
+  const int vec = ((uintptr_t)ids | (uintptr_t)grads | (uintptr_t)out) % 16
+                  == 0;
+  segment_sum_kernel<<<tiles, kThreads, 0, (cudaStream_t)stream>>>(
+      ids, grads, out, status, ticket, ticket_base, epoch, n, vec);
   return (int)cudaGetLastError();
 }

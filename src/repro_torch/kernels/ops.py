@@ -15,9 +15,11 @@ Call sites on the main path:
                         compressed_reduce)
   - `sorted_run_totals` also the hot-set gradient (core.dpmr.hot_grads)
   - `segment_sum_sorted` the sorted reduce under both, and the combiner
-                        `core.sparse.combine_grads` on the routing's order
+                        `core.sparse.combine_grads` on the routing's order;
+                        one CUDA kernel a call (a single-pass scan)
   - `select_pack`       topk_reduce's compensate + rank + pack
-                        (api.strategies.TopKReduceStrategy.reduce)
+                        (api.strategies.TopKReduceStrategy.reduce); one
+                        cluster kernel a call at the main path's shapes
   - `flash_attention`   the dense face's prefill self-attention, once per
                         layer (models.layers.causal_self_attention)
 

@@ -4,16 +4,31 @@ Replaces the Pallas TPU kernel `repro.kernels.select_pack.select_pack`:
 the `topk_reduce` strategy's compensate + rank-by-|value| + pack of each
 destination row of its (P, cap) send buffer. The TPU kernel ranks a row
 with a (cap, cap) comparison mask, which bounds it at cap = 4096; the
-CUDA kernel is a stable radix sort of each row, with no capacity bound
-and no fallback (the source note in the `.cu` file gives the design).
-All three outputs equal the plain version bit for bit.
+CUDA kernel has two paths and no capacity bound (the source note in the
+`.cu` file gives the design):
+
+  - the cluster path: one launch, a cluster of 16 CTAs per row that keeps
+    the row in shared memory, radix-selects the threshold key, compacts
+    the min(k, live) live winners and sorts only them, the CTAs talking
+    through pushes into each other's shared memory; no scratch in device
+    memory and no memset;
+  - the large path, for a row that the cluster cannot hold: a stable radix
+    sort of the whole row through device memory, 13 CUDA kernels and a
+    memset of the digit totals.
+
+Which path runs is a function of (cap, k) alone, stated once by the
+`.cu` file (`repro_select_pack_uses_cluster`), which the wrapper reads.
+`uses_cluster` is a Python copy of that rule for code that runs without
+the card (the CPU tests); the card tests hold the two together on each
+side of the rule's boundary. The main path's row (cap = 262,144) takes
+the cluster path at k = 13,108 (`topk_frac` 0.05) and at k = 65,536
+(0.25); at that cap the cluster path holds k up to 128,928.
+All three outputs equal the plain version bit for bit on both paths.
 
 On CPU tensors the wrapper computes the plain version
 (`ref.select_pack_ref`); on CUDA tensors it launches the kernel, or
 raises on inputs the kernel does not take. `launches` counts calls that
-launched it; each such call runs 13 CUDA kernels: the key pass (with
-the first histogram), 4 radix passes of histogram, scan and scatter,
-and the emit pass.
+launched it.
 """
 from __future__ import annotations
 
@@ -22,6 +37,60 @@ import torch
 from repro_torch.kernels import build, ref
 
 launches = 0
+
+
+# The cluster path's geometry, copied from `csrc/select_pack.cu` for the
+# Python copy of its path rule.
+CLUSTER_CTAS = 16
+CLUSTER_THREADS = 512
+CLUSTER_CHUNK = 4 * CLUSTER_THREADS   # slots of a chunk, 4 a thread
+CLUSTER_MAX_CHUNKS = 64               # chunks a CTA may hold
+RADIX = 256
+EXCHANGE_TABLE_BYTES = CLUSTER_CTAS * 512
+SMEM_PER_BLOCK = 232448               # shared memory one H100 block can use
+STATIC_SMEM_RESERVE = 1024            # the cluster kernel's static shared
+LARGE_TILE = 1024                     # slots a block of the large path takes
+
+
+def cluster_chunks(cap: int) -> int:
+    """Chunks of a row each CTA of the cluster holds: chunk q of the row
+    goes to CTA q % 16."""
+    return -(-(-(-cap // CLUSTER_CHUNK)) // CLUSTER_CTAS)
+
+
+def cluster_smem_bytes(cap: int, k: int) -> int:
+    """Dynamic shared memory of one CTA of the cluster path: two winner
+    buffers of min(k, cap) / 16 (comp, position) pairs, two exchange
+    tables, comp and a live bit a slot, per-warp digit rows and the CTA's
+    row, per (chunk, warp) counts and per-chunk bases."""
+    nq = cluster_chunks(cap)
+    s = nq * CLUSTER_CHUNK
+    wcap = -(-min(k, cap) // CLUSTER_CTAS)
+    warps = CLUSTER_THREADS // 32
+    return (2 * 8 * wcap + 2 * EXCHANGE_TABLE_BYTES + 4 * s
+            + 4 * warps * RADIX + 4 * RADIX + 8 * warps * nq + 12 * nq
+            + s // 8)
+
+
+def uses_cluster(cap: int, k: int) -> bool:
+    """The path rule, as the kernel states it: a row takes the cluster path
+    when one cluster's shared memory holds it, else the large path."""
+    return (cluster_chunks(cap) <= CLUSTER_MAX_CHUNKS
+            and cluster_smem_bytes(cap, k) + STATIC_SMEM_RESERVE
+            <= SMEM_PER_BLOCK)
+
+
+def scratch_shapes(p: int, cap: int, cluster: bool) -> dict[str, tuple]:
+    """int32 device scratch of a (P, cap) call on the given path, in the C
+    entry point's order: none on the cluster path; on the large path the
+    two key and two position buffers, the per-tile digit histogram and the
+    digit totals (which the large path zeroes with a memset)."""
+    if cluster:
+        return {}
+    tiles = -(-cap // LARGE_TILE)
+    return {"keys_a": (p, cap), "keys_b": (p, cap), "pos_a": (p, cap),
+            "pos_b": (p, cap), "hist": (p, RADIX * tiles),
+            "totals": (p, 4, RADIX)}
 
 
 def select_pack(send: torch.Tensor, ids: torch.Tensor,
@@ -41,18 +110,14 @@ def select_pack(send: torch.Tensor, ids: torch.Tensor,
     if p == 0:
         return vals_k, ids_k, resid
     lib = build.library()
-    tiles = -(-cap // lib.repro_select_pack_tile_size())
-    keys = torch.empty((2, p, cap), dtype=torch.int32, device=dev)
-    pos = torch.empty((2, p, cap), dtype=torch.int32, device=dev)
-    radix = lib.repro_select_pack_radix()
-    hist = torch.empty((p, radix * tiles), dtype=torch.int32, device=dev)
-    totals = torch.empty((p, 4, radix), dtype=torch.int32, device=dev)
+    cluster = bool(lib.repro_select_pack_uses_cluster(cap, k))
+    scratch = [torch.empty(shape, dtype=torch.int32, device=dev)
+               for shape in scratch_shapes(p, cap, cluster).values()]
+    ptrs = [t.data_ptr() for t in scratch] if scratch else [None] * 6
     status = lib.repro_select_pack_f32(
         send.data_ptr(), ids.data_ptr(), carry_slots.data_ptr(),
-        vals_k.data_ptr(), ids_k.data_ptr(), resid.data_ptr(),
-        keys[0].data_ptr(), keys[1].data_ptr(), pos[0].data_ptr(),
-        pos[1].data_ptr(), hist.data_ptr(), totals.data_ptr(), p, cap, k,
-        torch.cuda.current_stream(dev).cuda_stream)
+        vals_k.data_ptr(), ids_k.data_ptr(), resid.data_ptr(), *ptrs, p,
+        cap, k, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "select_pack")
     launches += 1
     return vals_k, ids_k, resid

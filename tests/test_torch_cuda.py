@@ -78,6 +78,110 @@ def test_segment_sum_kernel_edge_inputs(cuda):
     assert not pad.any()
 
 
+
+def _tile_edges(n, run):
+    return (np.arange(n) // run).astype(np.int32)
+
+
+def _alternating(n):
+    """Runs of length 1 and 2 in turn: ids 0, 1, 1, 2, 3, 3, ..."""
+    return (2 * np.arange(n) // 3).astype(np.int32)
+
+
+# name -> sorted ids (padding last) of the look-back's edge cases; the
+# kernel's tiles are 2,048 slots
+_SEG_CASES = {
+    "run-ends-at-tile-edges": lambda: _tile_edges(2048 * 64, 2048),
+    "runs-of-half-a-tile": lambda: _tile_edges(2048 * 64, 1024),
+    "runs-of-two-tiles": lambda: _tile_edges(2048 * 64, 4096),
+    "n-tile-times-37-plus-1": lambda: _sorted_ids(2048 * 37 + 1, 30, 1)[0],
+    "n-tile-times-37-minus-1": lambda: _sorted_ids(2048 * 37 - 1, 30, 2)[0],
+    "n-tile-plus-1-one-run": lambda: np.zeros(2049, np.int32),
+    "all-padding-many-tiles": lambda: np.full(2048 * 5 + 7, -1, np.int32),
+    "length-1-runs": lambda: np.arange(262144, dtype=np.int32),
+    "alternating-length-1-and-2": lambda: _alternating(262144),
+    "one-run-then-padding": lambda: np.concatenate([
+        np.zeros(2048 * 40 + 5, np.int32), np.full(3000, -1, np.int32)]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_SEG_CASES))
+def test_segment_sum_kernel_edge_cases(cuda, case):
+    """Integer-valued grads, so bit for bit; once on 16-byte aligned
+    tensors and once on views one element in (no vector loads)."""
+    ids = _SEG_CASES[case]()
+    g = np.random.default_rng(len(ids)).integers(
+        -8, 9, size=ids.shape).astype(np.float32)
+    for off in (0, 1):
+        ids_t = torch.from_numpy(np.concatenate([[0] * off, ids]).astype(
+            np.int32)).to(cuda)[off:]
+        g_t = torch.from_numpy(np.concatenate([[0] * off, g]).astype(
+            np.float32)).to(cuda)[off:]
+        assert ids_t.shape == (len(ids),)
+        assert (ids_t.data_ptr() % 16 == 0) == (off == 0)
+        got = ops.segment_sum_sorted(ids_t, g_t)
+        want = ref.segment_sum_sorted_ref(ids_t, g_t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (case, off)
+
+
+@pytest.mark.gpu
+def test_segment_sum_kernel_look_back_is_deterministic(cuda):
+    """f32 grads over N = 2^22 (2,048 tiles) in 7 runs that each cross
+    hundreds of tiles, so the look-back folds long chains of aggregates:
+    within the run-sum tolerance of the plain version, and 5 calls give
+    the same bits whatever order the tiles published in."""
+    n = 1 << 22
+    ids, rng = _sorted_ids(n, 7, seed=3)
+    g = rng.normal(size=n).astype(np.float32)
+    ids_t, g_t = torch.from_numpy(ids).to(cuda), torch.from_numpy(g).to(cuda)
+    outs = [ops.segment_sum_sorted(ids_t, g_t) for _ in range(5)]
+    want = ref.segment_sum_sorted_ref(ids_t, g_t)
+    mass = ref.segment_sum_sorted_ref(ids_t, g_t.abs())
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    assert bool(((outs[0] - want).abs() <= 1e-5 + 1e-6 * mass).all())
+
+
+@pytest.mark.gpu
+def test_segment_sum_kernel_refused_launch_resets_look_back(cuda,
+                                                            monkeypatch):
+    """A launch that the C entry refuses raises and leaves the stream's
+    look-back state behind (its ticket count would no longer match the
+    device's): the next call starts from a new buffer and gives the same
+    bits as before."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import segment_sum as ss
+
+    n = 20000
+    ids, rng = _sorted_ids(n, 50, seed=4)
+    ids_t = torch.from_numpy(ids).to(cuda)
+    g_t = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
+    first = ops.segment_sum_sorted(ids_t, g_t)
+    key = (ids_t.device.index, torch.cuda.current_stream(cuda).cuda_stream)
+    assert key in ss._lookback
+
+    class Refusing:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self._lib, name)
+
+        def repro_segment_sum_sorted_f32(self, *args):
+            return 1   # cudaErrorInvalidValue, before any launch
+
+    lib = build.library()
+    monkeypatch.setattr(build, "library", lambda: Refusing(lib))
+    with pytest.raises(RuntimeError, match="segment_sum_sorted"):
+        ops.segment_sum_sorted(ids_t, g_t)
+    assert key not in ss._lookback
+    monkeypatch.undo()
+    again = ops.segment_sum_sorted(ids_t, g_t)
+    torch.cuda.synchronize()
+    assert torch.equal(again, first)
+
 def _select_case(p, cap, live, seed, prefix=True):
     """(send, ids, carry) numpy inputs of select_pack: `live` live slots
     per row, as a prefix (route_build's layout) or scattered."""
@@ -93,33 +197,103 @@ def _select_case(p, cap, live, seed, prefix=True):
     return send.astype(np.float32), ids, carry.astype(np.float32)
 
 
-def _select_cases():
-    path = _select_case(1, 262144, 27376, seed=1)
-    equal = _select_case(2, 3000, 2500, seed=2, prefix=False)
-    equal = (np.where(equal[1] >= 0, 0.5, 0.0).astype(np.float32), equal[1],
-             np.zeros_like(equal[2]))
+def _select_ties_straddling_a_slice():
+    """All live, cap 40,000: 300 large values, then |comp| = 1.0 at
+    positions 2,000..3,500, which straddle the edge between the cluster's
+    first two 2,048-slot chunks (CTAs 0 and 1); k = 1,000 takes 700 of
+    those 1,501 ties."""
+    send, ids, carry = _select_case(1, 40000, 40000, seed=8)
+    send[0] = np.clip(send[0], -0.5, 0.5)
+    send[0, 2000:3501] = np.where(np.arange(1501) % 2, 1.0, -1.0)
+    carry[0, 2000:3501] = 0.0
+    send[0, 10000:10300] = 3.0 + np.arange(300)
+    return send, ids, carry
+
+
+def _select_all_equal(p, cap, live):
+    send, ids, carry = _select_case(p, cap, live, seed=2, prefix=False)
+    return (np.where(ids >= 0, 0.5, 0.0).astype(np.float32), ids,
+            np.zeros_like(carry))
+
+
+def _select_signed_zeros():
     zeros = _select_case(1, 2048, 2048, seed=3)
     rng = np.random.default_rng(3)
     sign = rng.choice([-0.0, 0.0, 1.0, -1.0], size=zeros[0].shape,
                       p=[0.3, 0.3, 0.2, 0.2]).astype(np.float32)
-    zeros = (sign, zeros[1],
-             rng.choice([-0.0, 0.0], size=sign.shape).astype(np.float32))
+    return (sign, zeros[1],
+            rng.choice([-0.0, 0.0], size=sign.shape).astype(np.float32))
+
+
+def _select_dead_row():
     dead = _select_case(3, 1100, 900, seed=4, prefix=False)
     dead[1][1] = -1
-    few = _select_case(2, 1024, 3, seed=5)
-    return {
-        "path-k13108": (*path, 13108),
-        "path-k65536": (*path, 65536),
-        "all-keys-equal": (*equal, 1000),
-        "signed-zeros": (*zeros, 1500),
-        "all-dead-row": (*dead, 100),
-        "3-live-below-k": (*few, 10),
-        "k-1": (*dead, 1),
-        "k-cap": (*dead, 1100),
-        "8-rows-cap-4104": (*_select_case(8, 4104, 3000, seed=6), 411),
-        "ragged-cap": (*_select_case(2, 5001, 4000, seed=7, prefix=False),
-                       2501),
-    }
+    return dead
+
+
+def _select_nan():
+    send, ids, carry = _select_case(2, 3000, 2800, seed=9, prefix=False)
+    send[0, [5, 700, 2999]] = np.nan
+    carry[1, [0, 1]] = np.nan
+    return send, ids, carry
+
+
+def _boundary_k(rule, cap):
+    """The largest k <= cap that `rule(cap, k)` puts on the cluster path,
+    or 0 if none (the rule switches once in k)."""
+    lo, hi = 0, cap + 1
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if rule(cap, mid) else (lo, mid)
+    return lo
+
+
+def _kernel_rule(cap, k):
+    from repro_torch.kernels import build
+
+    return bool(build.library().repro_select_pack_uses_cluster(cap, k))
+
+
+def _select_boundary_k():
+    """The largest k of the cluster path at the main path's cap, by the
+    kernel's own rule."""
+    return _boundary_k(_kernel_rule, 262144)
+
+
+def _path_row():
+    return _select_case(1, 262144, 27376, seed=1)
+
+
+# name -> (inputs, k), built when a test asks for them
+_SELECT_CASES = {
+    "path-k13108": lambda: (*_path_row(), 13108),
+    "path-k65536": lambda: (*_path_row(), 65536),
+    # k on each side of the path rule's boundary (both k > live: a dead
+    # tail of ~118,000 slots)
+    "path-k-cluster-boundary": lambda: (*_path_row(), _select_boundary_k()),
+    "path-k-large-past-boundary": lambda: (*_path_row(),
+                                           _select_boundary_k() + 1),
+    "all-keys-equal": lambda: (*_select_all_equal(2, 3000, 2500), 1000),
+    "all-keys-equal-262144": lambda: (
+        *_select_all_equal(1, 262144, 262144), 100000),
+    "ties-straddle-a-chunk-edge": lambda: (*_select_ties_straddling_a_slice(),
+                                      1000),
+    "signed-zeros": lambda: (*_select_signed_zeros(), 1500),
+    "nan": lambda: (*_select_nan(), 400),
+    "all-dead-row": lambda: (*_select_dead_row(), 100),
+    "3-live-below-k": lambda: (*_select_case(2, 1024, 3, seed=5), 10),
+    "k-1": lambda: (*_select_dead_row(), 1),
+    "k-cap": lambda: (*_select_dead_row(), 1100),
+    "k-above-live-scattered-dead": lambda: (
+        *_select_case(1, 50000, 20000, seed=10, prefix=False), 30000),
+    "8-rows-cap-4104": lambda: (*_select_case(8, 4104, 3000, seed=6), 411),
+    "8-rows-cap-32768": lambda: (*_select_case(8, 32768, 6000, seed=11),
+                                 3000),
+    "ragged-cap": lambda: (*_select_case(2, 5001, 4000, seed=7,
+                                         prefix=False), 2501),
+    "cap-100003": lambda: (*_select_case(1, 100003, 60000, seed=12,
+                                         prefix=False), 5000),
+}
 
 
 def _same_bits(a, b):
@@ -129,11 +303,11 @@ def _same_bits(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", sorted(_select_cases()))
+@pytest.mark.parametrize("case", sorted(_SELECT_CASES))
 def test_select_pack_kernel_bit_exact(cuda, case):
     """All three outputs equal the plain version bit for bit, -0.0 and the
-    order of the packed pairs included."""
-    send, ids, carry, k = _select_cases()[case]
+    order of the packed pairs included, on both paths."""
+    send, ids, carry, k = _SELECT_CASES[case]()
     args = [torch.from_numpy(x).to(cuda) for x in (send, ids, carry)]
     before = ops.launch_counts()["select_pack"]
     got = ops.select_pack(*args, k)
@@ -143,6 +317,32 @@ def test_select_pack_kernel_bit_exact(cuda, case):
     for g_, w in zip(got, want, strict=True):
         assert g_.shape == w.shape and g_.dtype == w.dtype
         assert _same_bits(g_, w)
+
+
+@pytest.mark.gpu
+def test_select_pack_path_rule_matches_kernel(cuda):
+    """The Python copy of the (cap, k) path rule is the kernel's, on each
+    side of its boundary, and the card places the main path's cluster."""
+    from repro_torch.kernels import build, select_pack
+
+    lib = build.library()
+    for cap in (1, 1000, 4104, 40000, 262144, 262145, 300001, 1 << 20,
+                3 << 20):
+        # both rules switch at the same k, compared on each side of it
+        kb = _boundary_k(select_pack.uses_cluster, cap)
+        assert _boundary_k(_kernel_rule, cap) == kb
+        for k in sorted({1, 13108, 65536, kb, kb + 1, cap}):
+            if not 1 <= k <= cap:
+                continue
+            assert _kernel_rule(cap, k) == select_pack.uses_cluster(cap, k)
+            assert lib.repro_select_pack_cluster_smem(cap, k) == \
+                select_pack.cluster_smem_bytes(cap, k)
+    assert _select_boundary_k() == 128928
+    assert lib.repro_select_pack_cluster_size() == select_pack.CLUSTER_CTAS
+    assert lib.repro_select_pack_tile_size() == select_pack.LARGE_TILE
+    assert lib.repro_select_pack_radix() == select_pack.RADIX
+    assert lib.repro_select_pack_max_clusters(262144, 13108) >= 1
+    assert lib.repro_select_pack_max_clusters(262144, 65536) >= 1
 
 
 @pytest.mark.gpu

@@ -322,3 +322,88 @@ def test_select_pack_edge_rows_semantics():
         torch.from_numpy(carry), 16)
     assert not resid.any()
     assert sorted(ids_k[0].tolist()) == sorted(ids[0].tolist())
+
+
+# ---------------------------------------------------------------------------
+# the CUDA wrappers' host-side rules, as pure Python (no card needed)
+# ---------------------------------------------------------------------------
+
+
+def _largest_cluster_k(cap):
+    from repro_torch.kernels import select_pack as sp
+
+    lo, hi = 1, cap + 1
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if sp.uses_cluster(cap, mid) else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize("cap,k", [(262144, 13108), (262144, 65536),
+                                   (4104, 411), (1, 1), (5001, 2501)])
+def test_select_pack_main_path_takes_the_cluster_path(cap, k):
+    """The main path's row (cap 262,144 at topk_frac 0.05 and 0.25) and
+    small rows take the one-launch cluster path, with no device scratch."""
+    from repro_torch.kernels import select_pack as sp
+
+    assert sp.uses_cluster(cap, k)
+    assert sp.scratch_shapes(3, cap, sp.uses_cluster(cap, k)) == {}
+    assert sp.cluster_smem_bytes(cap, k) + sp.STATIC_SMEM_RESERVE \
+        <= sp.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("cap", [40000, 262144, 300001])
+def test_select_pack_path_rule_boundary_in_k(cap):
+    """At a cap the cluster holds, the rule switches once in k: every k up
+    to the boundary takes the cluster path, every k past it the large
+    path, whose scratch is the multi-pass sort's."""
+    from repro_torch.kernels import select_pack as sp
+
+    kb = _largest_cluster_k(cap)
+    assert sp.uses_cluster(cap, 1) and sp.uses_cluster(cap, kb)
+    sizes = [sp.cluster_smem_bytes(cap, k) for k in (1, kb // 2, kb, cap)]
+    assert sizes == sorted(sizes)
+    if kb < cap:
+        assert not sp.uses_cluster(cap, kb + 1)
+        assert not sp.uses_cluster(cap, cap)
+        tiles = -(-cap // sp.LARGE_TILE)
+        assert sp.scratch_shapes(
+            2, cap, sp.uses_cluster(cap, kb + 1)) == {
+            "keys_a": (2, cap), "keys_b": (2, cap), "pos_a": (2, cap),
+            "pos_b": (2, cap), "hist": (2, sp.RADIX * tiles),
+            "totals": (2, 4, sp.RADIX)}
+    # at the main path's cap the rule holds a k of 65,536 with room to spare
+    if cap == 262144:
+        assert kb >= 65536
+
+
+def test_select_pack_rows_too_large_for_the_cluster():
+    """A row whose keys alone overflow the cluster's shared memory takes
+    the large path at every k."""
+    from repro_torch.kernels import select_pack as sp
+
+    cap = 1 << 21
+    assert sp.cluster_chunks(cap) * sp.CLUSTER_CHUNK * 4 \
+        > sp.SMEM_PER_BLOCK
+    assert not any(sp.uses_cluster(cap, k) for k in (1, 1000, cap))
+    assert set(sp.scratch_shapes(1, cap, sp.uses_cluster(cap, 1))) == {
+        "keys_a", "keys_b", "pos_a", "pos_b", "hist", "totals"}
+
+
+def test_segment_sum_look_back_state():
+    """The look-back's status words are never cleared between calls: each
+    call takes a new epoch and the ticket count where the last one
+    stopped; the words are zeroed only when the epoch wraps."""
+    from repro_torch.kernels import segment_sum as ss
+
+    st = ss._LookBack(4, torch.device("cpu"))
+    assert st.words.shape == (5,) and not st.words.any()
+    assert st.next_call(4) == (1, 0)
+    assert st.next_call(3) == (2, 4)
+    assert st.next_call(4) == (3, 7)
+    st.words[:] = 7
+    st.epoch, st.ticket = 2 ** ss.EPOCH_BITS - 1, 2 ** 32 - 2
+    assert st.next_call(4) == (1, 2 ** 32 - 2)
+    assert st.ticket == 2 and not st.words[:-1].any()
+    assert int(st.words[-1]) == 7   # the ticket word is left alone
+    assert ss.num_tiles(0, 2048) == 1 and ss.num_tiles(2049, 2048) == 2
