@@ -112,13 +112,16 @@ def report(stem: str) -> pathlib.Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.repro_sigmoid_grad_f32.argtypes = [p, p, p, p, p, p, i, i, p]
+    lib.repro_sigmoid_grad_f32.argtypes = [p, p, p, p, ll, i, p]
     lib.repro_sigmoid_grad_f32.restype = i
+    lib.repro_sigmoid_grad_floor.argtypes = [p, p, ll, i, p]
+    lib.repro_sigmoid_grad_floor.restype = i
     lib.repro_segment_sum_tile_size.argtypes = []
     lib.repro_segment_sum_tile_size.restype = i
-    u = ctypes.c_uint
-    lib.repro_segment_sum_sorted_f32.argtypes = [p, p, p, p, p, u, u, ll, p]
+    lib.repro_segment_sum_sorted_f32.argtypes = [p, p, p, p, p, i, ll, p]
     lib.repro_segment_sum_sorted_f32.restype = i
+    lib.repro_segment_sum_zero_state.argtypes = [p, ll]
+    lib.repro_segment_sum_zero_state.restype = i
     for name in ("tile_size", "radix", "cluster_size"):
         getattr(lib, f"repro_select_pack_{name}").argtypes = []
         getattr(lib, f"repro_select_pack_{name}").restype = i

@@ -45,14 +45,27 @@
 //  - while warp 0 looks back, the other threads store every run total that
 //    does not need the carry; only the run entering the tile from the left
 //    waits for it.
-// The status words are never zeroed on the call path: each word carries
-// the call's epoch (29 bits), and a word of another epoch reads as
-// unpublished; the ticket counter is never reset either, the wrapper passes
-// the count it starts at. Both live in a buffer the wrapper keeps per
-// stream. Every addition happens in a fixed order and no float atomics are
-// used, so the output is bit-identical from call to call. The order
-// differs from a sequential sum, so it agrees with the plain version to
-// within f32 rounding of the run totals, not bit for bit.
+// The look-back's state lives on the device, in a buffer the wrapper keeps
+// per stream (and one of its own for each call captured in a CUDA graph):
+// the status words and a 64-bit control word, the ticket in its low half
+// and the epoch in its high half. Nothing in it comes from the host, so a
+// replayed graph starts from the state the last call left. Each block
+// takes its tile and the call's epoch from one atomicAdd on the control
+// word; the block that takes the last tile stores ticket 0 and the next
+// epoch back (after every block's add, so every block read this call's
+// epoch). The status words are never zeroed on the call path: each word
+// carries its call's epoch (29 bits), and a word of another epoch reads
+// as unpublished. The epoch wraps after 2^29 - 1 calls, so a word must
+// not outlive that many calls: the last tile's block also zeroes one word
+// past the call's tiles, word (epoch mod m) for the power of two m just
+// above `capacity`, so within 2 m calls (m at most 2^21, far below 2^29)
+// every word is published again or zeroed, and none keeps an epoch long
+// enough to meet it again. Stream
+// order keeps calls apart: the next call starts after this one has ended.
+// Every addition happens in a fixed order and no float atomics are used,
+// so the output is bit-identical from call to call. The order differs
+// from a sequential sum, so it agrees with the plain version to within f32
+// rounding of the run totals, not bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,6 +80,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kAggregate = 1u;
 constexpr unsigned kInclusive = 2u;
 constexpr int kEpochBits = 29;
+constexpr unsigned kMaxEpoch = (1u << kEpochBits) - 1;
 static_assert(kItems % 4 == 0, "whole 16-byte vectors a thread");
 
 // A span of slots under the segmented-sum operator: `head` says a run
@@ -166,24 +180,42 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ grads,
                        float* __restrict__ out,
                        unsigned long long* __restrict__ status,
-                       unsigned* __restrict__ ticket, unsigned ticket_base,
-                       unsigned epoch, long long n, int vec) {
+                       unsigned long long* __restrict__ control,
+                       int capacity, long long n, int vec) {
   __shared__ __align__(16) int s_ids[kTile];
   __shared__ __align__(16) float s_val[kTile];
   __shared__ int s_head[kWarps];
   __shared__ float s_sum[kWarps];
   __shared__ int s_tile, s_prev, s_next, s_ready;
+  __shared__ unsigned s_epoch;
   __shared__ float s_carry_sum;
 
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
   if (tid == 0) {
-    s_tile = (int)(atomicAdd(ticket, 1u) - ticket_base);
+    // the ticket and the call's epoch (stored minus 1) from one atomic
+    const unsigned long long got = atomicAdd(control, 1ull);
+    const int tile = (int)(unsigned)got;
+    const unsigned epoch = (unsigned)(got >> 32) + 1;
+    if (tile == (int)gridDim.x - 1) {
+      // every block has taken its ticket, and so read the epoch: set up
+      // the stream's next call (this store follows every add of the call),
+      // and zero one word that this call does not use
+      store_status(control,
+                   (unsigned long long)(epoch == kMaxEpoch ? 0u : epoch)
+                       << 32);
+      const unsigned scrub = epoch & (0xffffffffu >> __clz(capacity));
+      if (scrub >= gridDim.x && scrub < (unsigned)capacity)
+        store_status(&status[scrub], 0ull);
+    }
+    s_tile = tile;
+    s_epoch = epoch;
     s_ready = 0;
   }
   __syncthreads();
   const int tile = s_tile;
+  const unsigned epoch = s_epoch;
   const long long base = (long long)tile * kTile;
   const long long left = n - base;
   const bool full = vec && left >= kTile;
@@ -313,26 +345,45 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int repro_segment_sum_tile_size() { return kTile; }
 
-// status: ceil(n / tile) 64-bit words; ticket: one 32-bit counter. Both
-// persist between calls and are never zeroed here: `epoch` (1 <= epoch <
-// 2^29) must differ from the epoch of any word already in `status`, and
-// `ticket_base` is the counter's value before this call (it advances by the
-// number of tiles). Calls that share them must be ordered (one stream).
+// status: `capacity` >= ceil(n / tile) 64-bit words (capacity < 2^29 - 1),
+// then the 64-bit control word {ticket, epoch - 1}: all zero when the
+// buffer is made, and from then on kept by the kernel alone (no argument
+// carries state, so a captured launch replays correctly). Calls that share
+// a buffer must be ordered (one stream, or one graph replayed in order).
 // n < 2^31.
 extern "C" int repro_segment_sum_sorted_f32(const int* ids, const float* grads,
                                             float* out,
                                             unsigned long long* status,
-                                            unsigned* ticket,
-                                            unsigned ticket_base,
-                                            unsigned epoch, long long n,
+                                            unsigned long long* control,
+                                            int capacity, long long n,
                                             void* stream) {
   if (n <= 0) return 0;
-  if (epoch == 0 || epoch >= (1u << kEpochBits))
-    return (int)cudaErrorInvalidValue;
   const int tiles = (int)((n + kTile - 1) / kTile);
+  if (capacity < tiles || capacity >= (int)kMaxEpoch)
+    return (int)cudaErrorInvalidValue;
   const int vec = ((uintptr_t)ids | (uintptr_t)grads | (uintptr_t)out) % 16
                   == 0;
   segment_sum_kernel<<<tiles, kThreads, 0, (cudaStream_t)stream>>>(
-      ids, grads, out, status, ticket, ticket_base, epoch, n, vec);
+      ids, grads, out, status, control, capacity, n, vec);
   return (int)cudaGetLastError();
+}
+
+// Zero `bytes` at `p` now, outside any stream capture under way on this
+// thread: for the look-back buffer of a call being captured, which must
+// start zeroed at the graph's first replay and must not be zeroed again
+// at later ones. Runs on a stream of its own and waits for it.
+extern "C" int repro_segment_sum_zero_state(void* p, long long bytes) {
+  cudaStreamCaptureMode mode = cudaStreamCaptureModeRelaxed;
+  cudaError_t err = cudaThreadExchangeStreamCaptureMode(&mode);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s;
+  err = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  if (err == cudaSuccess) {
+    err = cudaMemsetAsync(p, 0, (size_t)bytes, s);
+    const cudaError_t sync = cudaStreamSynchronize(s);
+    if (err == cudaSuccess) err = sync;
+    cudaStreamDestroy(s);
+  }
+  cudaThreadExchangeStreamCaptureMode(&mode);
+  return (int)err;
 }

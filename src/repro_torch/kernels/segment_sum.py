@@ -15,13 +15,21 @@ On CPU tensors the wrapper computes the plain version
 or raises on inputs the kernel does not take. `launches` counts calls
 that launched it; each such call is one CUDA kernel and no memset.
 
-The look-back's status words and tile ticket live in a buffer kept per
-(device, stream) and are never cleared on the call path: each call
-stamps its words with a new epoch and passes the ticket count it starts
-from (`_LookBack`). The buffer is zeroed only when it is made or grows,
-and when the epoch wraps (every 2^29 - 1 calls). Calls that share a
-buffer are ordered by their stream; a CUDA graph that replays a captured
-call would replay its epoch too, so the port captures none.
+The look-back's state lives on the device: status words (one int64 a
+tile) and a control word (the ticket and the epoch) that the kernel alone
+reads and advances, so no call passes it any state. The wrapper keeps one
+zeroed buffer per (device, stream); it is zeroed again only when it
+grows. Calls that share a buffer are ordered by their stream.
+
+Capture in a CUDA graph: a call made while the current stream is
+capturing gets a buffer of its own, zeroed at capture time outside the
+graph, which its replays carry on from (each replay leaves it ready for
+the next). So a replay on any stream never shares state with an eager
+call. Replays of one graph must be ordered, as for any graph that reuses
+its memory. The module keeps each such buffer alive until the owner of
+the graph takes it with `take_captured()` right after the capture and
+keeps it as long as the graph: a graph whose buffers were taken and
+dropped must not be replayed.
 """
 from __future__ import annotations
 
@@ -30,44 +38,49 @@ import torch
 from repro_torch.kernels import build, ref
 
 launches = 0
-EPOCH_BITS = 29
+CONTROL_WORDS = 1   # int64 words after the status words: the control word
 
-
-class _LookBack:
-    """The status words (one int64 a tile) and the ticket counter (the last
-    int64) of one stream, with the epoch and ticket count of its last
-    call."""
-
-    def __init__(self, tiles: int, device: torch.device):
-        self.words = torch.zeros((tiles + 1,), dtype=torch.int64,
-                                 device=device)
-        self.epoch = 0
-        self.ticket = 0
-
-    def next_call(self, tiles: int) -> tuple[int, int]:
-        """(epoch, ticket base) for a call over `tiles` tiles."""
-        if self.epoch == 2 ** EPOCH_BITS - 1:
-            self.words[:-1].zero_()
-            self.epoch = 0
-        self.epoch += 1
-        base = self.ticket
-        self.ticket = (self.ticket + tiles) % 2 ** 32
-        return self.epoch, base
-
-
-_lookback: dict[tuple[int, int], _LookBack] = {}
+_lookback: dict[tuple[int, int], torch.Tensor] = {}
+_captured: list[torch.Tensor] = []
 
 
 def num_tiles(n: int, tile: int) -> int:
     return max(1, -(-n // tile))
 
 
-def _state(device: torch.device, stream: int, tiles: int) -> _LookBack:
+def _state(device: torch.device, stream: int, tiles: int,
+           capturing: bool) -> torch.Tensor:
+    """The look-back buffer (status words, then the control word) for a
+    call over `tiles` tiles on `stream`: the stream's own, or a new one
+    for a call under capture."""
+    if capturing:
+        words = torch.empty((tiles + CONTROL_WORDS,), dtype=torch.int64,
+                            device=device)
+        _zero_outside_capture(words)
+        _captured.append(words)
+        return words
     key = (device.index, stream)
-    st = _lookback.get(key)
-    if st is None or st.words.numel() < tiles + 1:
-        st = _lookback[key] = _LookBack(tiles, device)
-    return st
+    words = _lookback.get(key)
+    if words is None or words.numel() < tiles + CONTROL_WORDS:
+        words = _lookback[key] = torch.zeros(
+            (tiles + CONTROL_WORDS,), dtype=torch.int64, device=device)
+    return words
+
+
+def _zero_outside_capture(words: torch.Tensor) -> None:
+    if words.device.type != "cuda":
+        words.zero_()
+        return
+    build.check(build.library().repro_segment_sum_zero_state(
+        words.data_ptr(), 8 * words.numel()), "segment_sum_sorted")
+
+
+def take_captured() -> list[torch.Tensor]:
+    """The buffers of the calls captured since the last take; the module
+    drops its own references to them. Keep the list with the graph."""
+    taken = _captured[:]
+    _captured.clear()
+    return taken
 
 
 def segment_sum_sorted(ids: torch.Tensor, grads: torch.Tensor
@@ -86,17 +99,13 @@ def segment_sum_sorted(ids: torch.Tensor, grads: torch.Tensor
     lib = build.library()
     tiles = num_tiles(n, lib.repro_segment_sum_tile_size())
     stream = torch.cuda.current_stream(ids.device).cuda_stream
-    st = _state(ids.device, stream, tiles)
-    epoch, base = st.next_call(tiles)
-    words = st.words.data_ptr()
-    status = lib.repro_segment_sum_sorted_f32(
-        ids.data_ptr(), grads.data_ptr(), out.data_ptr(), words,
-        words + 8 * (st.words.numel() - 1), base, epoch, n, stream)
-    if status:
-        # the device's ticket count no longer matches `st.ticket`: the
-        # stream's next call starts from a new, zeroed buffer
-        del _lookback[(ids.device.index, stream)]
-    build.check(status, "segment_sum_sorted")
+    words = _state(ids.device, stream, tiles,
+                   torch.cuda.is_current_stream_capturing())
+    capacity = words.numel() - CONTROL_WORDS
+    ptr = words.data_ptr()
+    build.check(lib.repro_segment_sum_sorted_f32(
+        ids.data_ptr(), grads.data_ptr(), out.data_ptr(), ptr,
+        ptr + 8 * capacity, capacity, n, stream), "segment_sum_sorted")
     launches += 1
     return out
 

@@ -35,20 +35,101 @@ def _sorted_ids(n, nruns, seed):
     return np.concatenate([ids, np.full(n // 8, -1, np.int32)]), rng
 
 
+def _sg_inputs(cuda, b, k, seed=None):
+    rng = np.random.default_rng(b + k if seed is None else seed)
+    vals = rng.normal(size=(b, k)).astype(np.float32)
+    theta = rng.normal(size=(b, k)).astype(np.float32)
+    y = rng.integers(0, 2, size=(b,)).astype(np.int32)
+    return [torch.from_numpy(x).to(cuda) for x in (vals, theta, y)]
+
+
+# (B, K) where the kernel's paths split: the main path's (4096, 64), one
+# wave; (262144, 64) and the ragged (270001, 8), past one wave (the groups
+# stride over the rows); K % 4 != 0 (scalar chunks), also past one wave
+# (10001, 65); K > 128 (a warp a row, over its chunks); B = 0 and 1; a
+# ragged B
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,k", [(4096, 64), (33, 7), (5, 200)])
+@pytest.mark.parametrize("b,k", [(4096, 64), (33, 7), (5, 200), (262144, 64),
+                                 (1000, 65), (77, 3), (300, 256), (0, 64),
+                                 (1, 64), (1, 7), (4097, 64), (129, 128),
+                                 (10001, 65), (270001, 8)])
 def test_sigmoid_grad_kernel_matches_plain(cuda, b, k):
-    rng = np.random.default_rng(b + k)
-    vals = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32))
-    theta = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32))
-    y = torch.from_numpy(rng.integers(0, 2, size=(b,)).astype(np.int32))
-    want = ref.sigmoid_grad_ref(vals.to(cuda), theta.to(cuda), y.to(cuda))
+    vals, theta, y = _sg_inputs(cuda, b, k)
+    want = ref.sigmoid_grad_ref(vals, theta, y)
     before = ops.launch_counts()["sigmoid_grad"]
-    got = ops.sigmoid_grad(vals.to(cuda), theta.to(cuda), y.to(cuda))
+    got = ops.sigmoid_grad(vals, theta, y)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["sigmoid_grad"] == before + 1
+    assert ops.launch_counts()["sigmoid_grad"] == before + (b > 0)
     for g_, w in zip(got, want, strict=True):
+        assert g_.shape == w.shape and g_.dtype == torch.float32
         torch.testing.assert_close(g_, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k", [(4096, 64), (262144, 64), (1000, 65),
+                                 (10001, 65), (300, 256)])
+def test_sigmoid_grad_kernel_bit_repeatable(cuda, b, k):
+    """5 calls give the same bits; so do rows read a float at a time
+    (vals, theta one element off 16 bytes) and the first 4096 rows taken
+    alone (another grid): every variant sums the same chunks in the same
+    order."""
+    vals, theta, y = _sg_inputs(cuda, b, k)
+    outs = [ops.sigmoid_grad(vals, theta, y) for _ in range(5)]
+    shifted = [torch.empty(b * k + 1, device=cuda)[1:].view(b, k)
+               for _ in range(2)]
+    shifted[0].copy_(vals)
+    shifted[1].copy_(theta)
+    assert shifted[0].data_ptr() % 16 != 0
+    outs.append(ops.sigmoid_grad(*shifted, y))
+    head = ops.sigmoid_grad(vals[:4096], theta[:4096], y[:4096])
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        for a, b_ in zip(o, outs[0], strict=True):
+            assert _same_bits(a, b_)
+    for a, b_ in zip(head, outs[0], strict=True):
+        assert _same_bits(a, b_[:4096])
+
+
+@pytest.mark.gpu
+def test_sigmoid_grad_wrapper_one_buffer(cuda):
+    """grads, probs and nll are views into one allocation, each on a
+    16-byte boundary, none overlapping another: writing one leaves the
+    others as they were."""
+    from repro_torch.kernels import sigmoid_grad as sg
+
+    for b, k in [(4096, 64), (33, 7), (5, 3)]:
+        grads, probs, nll = ops.sigmoid_grad(*_sg_inputs(cuda, b, k))
+        assert grads.shape == (b, k) and grads.is_contiguous()
+        assert probs.shape == (b,) and nll.shape == (b,)
+        assert all(t.data_ptr() % 16 == 0 for t in (grads, probs, nll))
+        base = grads.data_ptr()
+        p, n, total = sg.layout(b, k)
+        assert probs.data_ptr() == base + 4 * p >= base + 4 * b * k
+        assert nll.data_ptr() == base + 4 * n >= probs.data_ptr() + 4 * b
+        assert grads.untyped_storage().nbytes() == 4 * total
+        keep = [t.clone() for t in (grads, probs, nll)]
+        probs.fill_(7.0)
+        assert torch.equal(grads, keep[0]) and torch.equal(nll, keep[2])
+        nll.fill_(-7.0)
+        grads.fill_(3.0)
+        assert bool((probs == 7.0).all()) and bool((nll == -7.0).all())
+
+
+@pytest.mark.gpu
+def test_sigmoid_grad_wrapper_refuses(cuda):
+    vals, theta, y = _sg_inputs(cuda, 8, 16)
+    with pytest.raises(ValueError, match="labels on cpu"):
+        ops.sigmoid_grad(vals, theta, y.cpu())
+    with pytest.raises(TypeError, match="torch.float64"):
+        ops.sigmoid_grad(vals, theta.double(), y)
+    with pytest.raises(TypeError, match="torch.int64"):
+        ops.sigmoid_grad(vals, theta, y.long())
+    with pytest.raises(ValueError, match="shapes"):
+        ops.sigmoid_grad(vals, theta[:, :8], y)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.sigmoid_grad(vals, theta, y[:4])
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.sigmoid_grad(vals.t().contiguous().t(), theta, y)
 
 
 @pytest.mark.gpu
@@ -144,23 +225,36 @@ def test_segment_sum_kernel_look_back_is_deterministic(cuda):
     assert bool(((outs[0] - want).abs() <= 1e-5 + 1e-6 * mass).all())
 
 
+def _stream_buffer(cuda):
+    from repro_torch.kernels import segment_sum as ss
+
+    key = (cuda.index or 0, torch.cuda.current_stream(cuda).cuda_stream)
+    return ss._lookback[key]
+
+
+def _control(words):
+    """The control word {ticket, epoch - 1} as ints."""
+    return words[-1:].view(torch.int32).tolist()
+
+
 @pytest.mark.gpu
 def test_segment_sum_kernel_refused_launch_resets_look_back(cuda,
                                                             monkeypatch):
-    """A launch that the C entry refuses raises and leaves the stream's
-    look-back state behind (its ticket count would no longer match the
-    device's): the next call starts from a new buffer and gives the same
-    bits as before."""
+    """A launch that the C entry refuses raises and changes nothing: the
+    look-back state lives on the device and only the kernel advances it,
+    so the next call gives the same bits as before, from the same
+    buffer."""
     from repro_torch.kernels import build
-    from repro_torch.kernels import segment_sum as ss
 
     n = 20000
     ids, rng = _sorted_ids(n, 50, seed=4)
     ids_t = torch.from_numpy(ids).to(cuda)
     g_t = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
     first = ops.segment_sum_sorted(ids_t, g_t)
-    key = (ids_t.device.index, torch.cuda.current_stream(cuda).cuda_stream)
-    assert key in ss._lookback
+    words = _stream_buffer(cuda)
+    torch.cuda.synchronize()
+    control = _control(words)
+    assert control[0] == 0
 
     class Refusing:
         def __init__(self, lib):
@@ -176,11 +270,149 @@ def test_segment_sum_kernel_refused_launch_resets_look_back(cuda,
     monkeypatch.setattr(build, "library", lambda: Refusing(lib))
     with pytest.raises(RuntimeError, match="segment_sum_sorted"):
         ops.segment_sum_sorted(ids_t, g_t)
-    assert key not in ss._lookback
     monkeypatch.undo()
+    assert _stream_buffer(cuda) is words and _control(words) == control
     again = ops.segment_sum_sorted(ids_t, g_t)
     torch.cuda.synchronize()
     assert torch.equal(again, first)
+    assert _control(words) == [0, control[1] + 1]
+
+
+@pytest.mark.gpu
+def test_segment_sum_kernel_epoch_wraps(cuda):
+    """Calls across the epoch's wrap (2^29 - 1, then 1) give the plain
+    version's bits, and the control word counts on: ticket 0, epoch."""
+    n = 2048 * 64
+    ids, rng = _sorted_ids(n, 5, seed=6)
+    ids_t = torch.from_numpy(ids).to(cuda)
+    g_t = torch.from_numpy(rng.integers(-8, 9, size=n).astype(
+        np.float32)).to(cuda)
+    want = ref.segment_sum_sorted_ref(ids_t, g_t)
+    assert torch.equal(ops.segment_sum_sorted(ids_t, g_t), want)
+    words = _stream_buffer(cuda)
+    words[-1:].view(torch.int32)[1] = 2 ** 29 - 3   # next epoch 2^29 - 2
+    for stored in (2 ** 29 - 2, 0, 1, 2):
+        assert torch.equal(ops.segment_sum_sorted(ids_t, g_t), want)
+        assert _control(words) == [0, stored]
+
+
+@pytest.mark.gpu
+def test_segment_sum_kernel_scrubs_unused_status_words(cuda):
+    """Calls over fewer tiles than the buffer holds zero the words past
+    their tiles, one a call, so within 2 m calls (m the power of two above
+    the capacity) every word is zero or freshly published: none keeps an
+    epoch for the 2^29 - 1 calls it takes the epoch to come round."""
+    from repro_torch.kernels import segment_sum as ss
+
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        big = torch.zeros(2048 * 100, dtype=torch.int32, device=cuda)
+        ops.segment_sum_sorted(big, torch.ones(big.shape, device=cuda))
+        words = ss._lookback[(cuda.index or 0, side.cuda_stream)]
+        capacity = words.numel() - ss.CONTROL_WORDS
+        assert capacity == 100
+        stale = ((7 << 3 | 1 << 2 | 2) << 32) | int(
+            np.float32(999.0).view(np.uint32))
+        words[2:capacity] = stale
+        ids, rng = _sorted_ids(4096, 7, seed=9)
+        ids_t = torch.from_numpy(ids).to(cuda)
+        g_t = torch.from_numpy(rng.integers(-8, 9, size=4096).astype(
+            np.float32)).to(cuda)
+        want = ref.segment_sum_sorted_ref(ids_t, g_t)
+        outs = [ops.segment_sum_sorted(ids_t, g_t) for _ in range(2 * 128)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    assert not words[2:capacity].any()
+
+
+def _seg_graph_inputs(cuda, seed):
+    """f32 grads over sorted ids whose runs cross many tiles, at the main
+    path's N: the look-back folds chains of aggregates."""
+    n = 262144
+    ids, rng = _sorted_ids(n, 300, seed=seed)
+    g = rng.normal(size=n).astype(np.float32)
+    return torch.from_numpy(ids).to(cuda), torch.from_numpy(g).to(cuda)
+
+
+def _capture(fn):
+    """fn() captured in a CUDA graph after a warm-up on a side stream, as
+    torch.cuda.graphs asks; returns (graph, its output, the look-back
+    buffers its calls took)."""
+    from repro_torch.kernels import segment_sum as ss
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    ss.take_captured()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out, ss.take_captured()
+
+
+@pytest.mark.gpu
+def test_segment_sum_kernel_graph_replays_bit_identical(cuda):
+    """A call captured in a CUDA graph and replayed 5 times gives the eager
+    call's bits, on the captured inputs and on inputs changed in place
+    between replays; replays on a side stream while eager calls run on
+    the default stream give them too. One kernel a replay, no memset."""
+    ids_t, g_t = _seg_graph_inputs(cuda, seed=7)
+    want = ops.segment_sum_sorted(ids_t, g_t)
+    graph, out, bufs = _capture(lambda: ops.segment_sum_sorted(ids_t, g_t))
+    assert len(bufs) == 1 and bufs[0] is not _stream_buffer(cuda)
+    for _ in range(5):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(out, want)
+    for seed in range(8, 13):
+        new_ids, new_g = _seg_graph_inputs(cuda, seed)
+        ids_t.copy_(new_ids)
+        g_t.copy_(new_g)
+        eager = ops.segment_sum_sorted(new_ids, new_g)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(out, eager)
+        assert _same_bits(eager, ops.segment_sum_sorted(new_ids, new_g))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    others = [_seg_graph_inputs(cuda, seed) for seed in (20, 21)]
+    with torch.cuda.stream(side):
+        for _ in range(5):
+            graph.replay()
+    eager = [ops.segment_sum_sorted(*x) for x in others for _ in range(5)]
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert _same_bits(out, ops.segment_sum_sorted(ids_t, g_t))
+    for i, x in enumerate(others):
+        want_x = ref.segment_sum_sorted_ref(*x)
+        mass = ref.segment_sum_sorted_ref(x[0], x[1].abs())
+        for e in eager[5 * i:5 * i + 5]:
+            assert _same_bits(e, eager[5 * i])
+        assert bool(((eager[5 * i] - want_x).abs()
+                     <= 1e-5 + 1e-6 * mass).all())
+    assert _control(bufs[0])[0] == 0
+
+
+@pytest.mark.gpu
+def test_segment_sum_kernel_eager_after_capture(cuda):
+    """An eager call after a captured one on the same stream keeps the
+    stream's own buffer and gives the eager bits."""
+    ids_t, g_t = _seg_graph_inputs(cuda, seed=30)
+    first = ops.segment_sum_sorted(ids_t, g_t)
+    words = _stream_buffer(cuda)
+    other_ids, other_g = _seg_graph_inputs(cuda, seed=31)
+    graph, out, _ = _capture(lambda: ops.segment_sum_sorted(other_ids,
+                                                            other_g))
+    graph.replay()
+    again = ops.segment_sum_sorted(ids_t, g_t)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _stream_buffer(cuda) is words
+    assert _same_bits(again, first)
+    assert _same_bits(out, ops.segment_sum_sorted(other_ids, other_g))
+
 
 def _select_case(p, cap, live, seed, prefix=True):
     """(send, ids, carry) numpy inputs of select_pack: `live` live slots

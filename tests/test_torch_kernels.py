@@ -390,20 +390,85 @@ def test_select_pack_rows_too_large_for_the_cluster():
         "keys_a", "keys_b", "pos_a", "pos_b", "hist", "totals"}
 
 
-def test_segment_sum_look_back_state():
-    """The look-back's status words are never cleared between calls: each
-    call takes a new epoch and the ticket count where the last one
-    stopped; the words are zeroed only when the epoch wraps."""
+def test_segment_sum_look_back_buffer_per_stream(monkeypatch):
+    """Eager calls keep one zeroed buffer per (device, stream): the status
+    words, one a tile, then the control word; the same tensor while it is
+    large enough, a new zeroed one when a call needs more tiles."""
     from repro_torch.kernels import segment_sum as ss
 
-    st = ss._LookBack(4, torch.device("cpu"))
-    assert st.words.shape == (5,) and not st.words.any()
-    assert st.next_call(4) == (1, 0)
-    assert st.next_call(3) == (2, 4)
-    assert st.next_call(4) == (3, 7)
-    st.words[:] = 7
-    st.epoch, st.ticket = 2 ** ss.EPOCH_BITS - 1, 2 ** 32 - 2
-    assert st.next_call(4) == (1, 2 ** 32 - 2)
-    assert st.ticket == 2 and not st.words[:-1].any()
-    assert int(st.words[-1]) == 7   # the ticket word is left alone
-    assert ss.num_tiles(0, 2048) == 1 and ss.num_tiles(2049, 2048) == 2
+    monkeypatch.setattr(ss, "_lookback", {})
+    monkeypatch.setattr(ss, "_captured", [])
+    cpu = torch.device("cpu")
+    words = ss._state(cpu, 11, 4, capturing=False)
+    assert words.shape == (4 + ss.CONTROL_WORDS,)
+    assert words.dtype == torch.int64 and not words.any()
+    words.fill_(5)   # as a kernel would leave it
+    assert ss._state(cpu, 11, 3, capturing=False) is words
+    assert ss._state(cpu, 11, 4, capturing=False) is words
+    other = ss._state(cpu, 12, 4, capturing=False)
+    assert other is not words and not other.any()
+    grown = ss._state(cpu, 11, 9, capturing=False)
+    assert grown.shape == (9 + ss.CONTROL_WORDS,) and not grown.any()
+    assert ss._lookback == {(None, 11): grown, (None, 12): other}
+    assert ss._captured == [] and ss.take_captured() == []
+
+
+def test_segment_sum_look_back_buffer_per_capture(monkeypatch):
+    """A call under capture takes a new zeroed buffer of its own each time,
+    never the stream's; the module keeps it until `take_captured` hands it
+    over."""
+    from repro_torch.kernels import segment_sum as ss
+
+    monkeypatch.setattr(ss, "_lookback", {})
+    monkeypatch.setattr(ss, "_captured", [])
+    cpu = torch.device("cpu")
+    eager = ss._state(cpu, 11, 4, capturing=False)
+    first = ss._state(cpu, 11, 4, capturing=True)
+    second = ss._state(cpu, 11, 2, capturing=True)
+    assert first is not eager and second is not first
+    assert first.shape == (4 + ss.CONTROL_WORDS,)
+    assert second.shape == (2 + ss.CONTROL_WORDS,)
+    assert not first.any() and not second.any()
+    assert ss._lookback == {(None, 11): eager}
+    taken = ss.take_captured()
+    assert len(taken) == 2 and taken[0] is first and taken[1] is second
+    assert ss.take_captured() == []
+
+
+@pytest.mark.parametrize("n,tiles", [(0, 1), (1, 1), (2048, 1), (2049, 2),
+                                     (262144, 128), (262145, 129)])
+def test_segment_sum_num_tiles(n, tiles):
+    from repro_torch.kernels import segment_sum as ss
+
+    assert ss.num_tiles(n, 2048) == tiles
+
+
+@pytest.mark.parametrize("k", [7, 64, 65, 200, 256])
+def test_sigmoid_grad_matches_pallas_where_kernel_paths_split(k):
+    """The plain version against the Pallas kernel at the K where the CUDA
+    kernel's paths split: K % 4 != 0 (scalar chunks), the main path's 64,
+    a chunk past 64, and K > 128 (a warp a row)."""
+    rng = np.random.default_rng(k)
+    b = 48
+    vals = rng.normal(size=(b, k)).astype(np.float32)
+    theta = rng.normal(size=(b, k)).astype(np.float32)
+    y = rng.integers(0, 2, size=(b,)).astype(np.int32)
+    want = jops.sigmoid_grad(jnp.asarray(vals), jnp.asarray(theta),
+                             jnp.asarray(y), impl="pallas_interpret",
+                             block_b=16)
+    got = ops.sigmoid_grad(torch.from_numpy(vals), torch.from_numpy(theta),
+                           torch.from_numpy(y))
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
+def test_sigmoid_grad_output_layout():
+    """The wrapper's one output buffer: grads at 0, then probs and nll,
+    each on a 16-byte boundary, none overlapping."""
+    from repro_torch.kernels import sigmoid_grad as sg
+
+    for b, k in [(0, 64), (1, 1), (5, 3), (33, 7), (4096, 64)]:
+        p, n, total = sg.layout(b, k)
+        assert p % 4 == 0 and n % 4 == 0
+        assert p >= b * k and n >= p + b and total == n + b
+        assert total - b * k - 2 * b < 8
