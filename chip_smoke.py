@@ -41,10 +41,31 @@ Phases, in order; any failure exits non-zero:
               before and read just after, a full-batch fit iteration, a
               profiled window of 8 steps, evaluate on 3 held-out batches
               (start=1000)
-  5. parity   both strategies at 2^20 features on the card and on the CPU
+  5. multirank  the same engine through an NCCL process group of one
+              rank (a file store, device_id set): a2a and topk_reduce for
+              8 steps, overlap_a2a for 4, each from the same state on the
+              same batches as an engine with no group; the states after
+              the steps bit-identical, the kernels launched, NCCL's
+              collectives and the device operations inside their
+              annotated spans in a host and device trace (at one rank
+              NCCL runs them as copies); step medians and samples/s with
+              and without the group, walls in turns, the host operations
+              the group adds a step (the c10d collectives among them)
+              against the wall it adds, host µs of a collective
+  6. p8       the buffers of a P = 8 routing on one card: a global batch
+              of 8 x 4096 samples at 2^27, each rank's rows routed to 8
+              owners of 2^24 rows, the all_to_alls as transposes of the
+              stacked buffers; each owner's owner_accumulate and
+              segment_sum_sorted against the plain versions, the
+              run-length histogram of the received buffers (a run longer
+              than 1 required), select_pack on the 8-row send buffers bit
+              for bit, the 8 owners' gradient against the P = 1 gradient
+              of the same samples; segment_sum_sorted, owner_accumulate
+              and select_pack timed at one owner's (8, cap)
+  7. parity   both strategies at 2^20 features on the card and on the CPU
               from the same batches; run-to-run bit reproducibility of
               the card's gradient step and of topk_reduce's carry
-  6. attention  yi-6b at full width (32 layers, bf16) built on the card
+  8. attention  yi-6b at full width (32 layers, bf16) built on the card
               from a torch.Generator seeded 0; `flash_attention` against
               its plain version on layer 0's q, k, v of a (1, 4096)
               prefill, and on adversarial shapes (D = 64, MHA, MQA with
@@ -53,12 +74,12 @@ Phases, in order; any failure exits non-zero:
               with its plain version and scaled_dot_product_attention as
               the yardstick; the timed call's own output held to the
               plain version, and 3 calls bit-identical
-  7. serve    greedy_decode of yi-6b, batch 8 x prompt 4096 (numpy seed
+  9. serve    greedy_decode of yi-6b, batch 8 x prompt 4096 (numpy seed
               0), 32 steps, with the launch counters set to 0 just before
               and read just after (flash_attention: 32, all in prefill);
               then prefill and each decode step timed alone, a profiled
               prefill and a profiled window of decode steps
-  8. dense parity  yi-6b at full width with 2 layers, weights from a CPU
+  10. dense parity  yi-6b at full width with 2 layers, weights from a CPU
               generator copied to the card: prefill (2 x 256) and 4
               decode steps on the card and on the CPU; the card's prefill
               again with the plain attention put in the kernel's place
@@ -1100,11 +1121,13 @@ def phase_engine(torch, dev, results, train, test, hot):
 
 
 def profile_steps(torch, eng, batches, tag):
-    """Where a train step's time goes: fit_sgd over `batches` twice, first
-    untraced for the wall time per step, then under torch.profiler for
-    the device busy time per step by kernel. The profiler adds host cost
-    to every launch, so the idle share is 1 - busy / untraced wall; the
-    traced wall is reported beside it."""
+    """Where a train step's time goes: fit_sgd over `batches` three times,
+    first untraced for the wall time per step, then under torch.profiler
+    for the device busy time per step by kernel, then traced on the host
+    alone for the top-level host operations a step by name (`host_ops`:
+    the work a step dispatches, which two checkouts can be compared on).
+    The profiler adds host cost to every launch, so the idle share is
+    1 - busy / untraced wall; the traced wall is reported beside it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1131,9 +1154,481 @@ def profile_steps(torch, eng, batches, tag):
         f"({1 - busy / traced_ms:.3f} of the traced one)")
     for name, ms in top:
         log(f"[profile {tag}]   {ms:8.4f} ms  {name[:110]}")
+    with profile(activities=[ProfilerActivity.CPU]) as host:
+        eng.fit_sgd(batches)
+    ops = host_ops(host.events(), len(batches))
+    calls = {name: round(d["calls"], 4) for name, d in sorted(ops.items())}
+    log(f"[profile {tag}] top-level host operations a step: "
+        f"{sum(calls.values()):g}, {sum(d['ms'] for d in ops.values()):.3f} "
+        f"ms traced; by name {json.dumps(calls)}")
     return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms, "busy_ms": busy,
             "idle_share": 1 - busy / wall_ms,
-            "idle_share_traced": 1 - busy / traced_ms, "top": top}
+            "idle_share_traced": 1 - busy / traced_ms, "top": top,
+            "by_kernel": by_kernel, "host_ops": ops}
+
+
+MR_STEPS = (("a2a", 8), ("topk_reduce", 8), ("overlap_a2a", 4))
+
+
+def _timed_fit(torch, eng, batches):
+    """fit_sgd one batch at a time, with the launch counters set to 0 just
+    before and read just after: (step seconds, total seconds, counts)."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    step_s = []
+    t_all = time.perf_counter()
+    for b in batches:
+        t = time.perf_counter()
+        eng.fit_sgd([b])            # reads the metrics back: synchronizes
+        step_s.append(time.perf_counter() - t)
+    return step_s, time.perf_counter() - t_all, ops.launch_counts()
+
+
+def phase_multirank(torch, dev, train, hot):
+    """The engine through an NCCL process group of one rank on the card:
+    a2a and topk_reduce for 8 fit_sgd steps, overlap_a2a for 4, each from
+    the same state on the same device-resident batches as an engine with
+    no group; the states after the steps must be bit-identical, the
+    kernels launched in the group's run, and NCCL's collectives with
+    device operations (kernels, or at one rank copies) inside their
+    annotated spans in a trace of the group's a2a steps."""
+    import torch.distributed as dist
+
+    from repro_torch import DPMREngine
+    from repro_torch.api import put_batch
+    from repro_torch.launch.mesh import make_host_mesh, process_groups
+
+    store = ROOT / "results" / "nccl_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{store}", rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    out = {}
+    try:
+        mesh = make_host_mesh(1)
+        groups = process_groups(mesh)
+        log(f"[multirank] NCCL group of 1 rank (backend "
+            f"{dist.get_backend()}, NCCL {torch.cuda.nccl.version()}): mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+            f"{mesh.device_type}; world group size "
+            f"{dist.get_world_size(groups.world)}")
+        batches = [put_batch(b, dev) for b in train[:8]]
+        for name, steps in MR_STEPS:
+            cfg = full_width_config(name)
+            runs, engines = {}, {}
+            for tag, m in (("plain", None), ("nccl", mesh)):
+                eng = DPMREngine(cfg, hot_ids=hot, mesh=m)
+                step_s, total, counts = _timed_fit(torch, eng,
+                                                   batches[:steps])
+                runs[tag] = {"step_ms_median": statistics.median(step_s)
+                             * 1e3, "step_ms": [x * 1e3 for x in step_s],
+                             "samples_per_s": steps * BATCH / total,
+                             "launches": counts}
+                engines[tag] = eng
+            same = _same_state(torch, engines["plain"].state,
+                               engines["nccl"].state)
+            counts = runs["nccl"]["launches"]
+            log(f"[multirank {name}] {steps} steps: step median "
+                f"{runs['plain']['step_ms_median']:.3f} ms without a group "
+                f"({runs['plain']['samples_per_s']:.0f} samples/s), "
+                f"{runs['nccl']['step_ms_median']:.3f} ms through NCCL "
+                f"({runs['nccl']['samples_per_s']:.0f} samples/s); cold, hot "
+                f"and carry bit-identical={same}; launches through NCCL "
+                f"{counts}")
+            require(same, f"{name}: the NCCL group's states differ from the "
+                    "run without a group")
+            require(counts["sigmoid_grad"] == steps
+                    and counts["segment_sum_sorted"] == 3 * steps
+                    and counts["select_pack"] == (
+                        steps if name == "topk_reduce" else 0),
+                    f"{name} through NCCL launched {counts} in {steps} steps")
+            if name == "a2a":
+                for tag in ("plain", "nccl"):
+                    runs[tag]["profile"] = profile_steps(
+                        torch, engines[tag], batches, f"multirank a2a {tag}")
+                runs["nccl"].update(nccl_ops(torch, engines, batches))
+                out["walls_in_turns"] = walls_in_turns(torch, engines,
+                                                       batches)
+                out["collective_host_us"] = collective_host_us(
+                    torch, dev, engines["nccl"].fns.ctx,
+                    engines["nccl"].fns.capacity, cfg.max_hot)
+            out[name] = runs
+            del engines
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return out
+
+
+def host_ops(events, n):
+    """The top-level host operations of a trace over `n` steps (the torch
+    and c10d calls the program made on its main thread, not those they
+    made in turn), a step: name -> {"calls", "ms"} of host time."""
+    from torch.autograd import DeviceType
+
+    top = [e for e in events if e.device_type == DeviceType.CPU
+           and e.cpu_parent is None and not e.name.startswith("nccl:")]
+    if not top:
+        return {}
+    threads = [e.thread for e in top]
+    main = max(set(threads), key=threads.count)
+    out = {}
+    for evt in top:
+        if evt.thread == main:
+            d = out.setdefault(evt.name, {"calls": 0.0, "ms": 0.0})
+            d["calls"] += 1 / n
+            d["ms"] += evt.time_range.elapsed_us() / n / 1e3
+    return out
+
+
+def host_ops_diff(got, base):
+    """name -> {"calls", "ms"} a step that `got`'s host operations run
+    beyond `base`'s, for the names whose count differs."""
+    out = {}
+    zero = {"calls": 0.0, "ms": 0.0}
+    for name in sorted(set(got) | set(base)):
+        g, b = got.get(name, zero), base.get(name, zero)
+        if abs(g["calls"] - b["calls"]) > 1e-6:
+            out[name] = {"calls": g["calls"] - b["calls"],
+                         "ms": g["ms"] - b["ms"]}
+    return out
+
+
+def _host_and_device_trace(torch, eng, batches):
+    """fit_sgd over `batches` traced on the host and the device, a step:
+    the wall (traced); the host's ProcessGroupNCCL ranges ("nccl:*",
+    calls); the top-level host operations (`host_ops`); the device spans
+    NCCL annotates with the same names (calls, ms); and the device
+    operations inside those spans on their stream (calls, ms), which are
+    NCCL's own: a stream runs in order, and a span covers from the first
+    to the last device operation its host range launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.fit_sgd(batches)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    n = len(batches)
+    events = prof.events()
+    host, spans, windows = {}, {}, []
+
+    def add(into, evt):
+        d = into.setdefault(evt.name, {"calls": 0.0, "ms": 0.0})
+        d["calls"] += 1 / n
+        d["ms"] += evt.time_range.elapsed_us() / n / 1e3
+
+    for evt in events:
+        if evt.device_type == DeviceType.CPU:
+            if evt.name.startswith("nccl:"):
+                host[evt.name] = host.get(evt.name, 0.0) + 1 / n
+        elif evt.name.startswith("nccl:"):
+            add(spans, evt)
+            windows.append((evt.device_resource_id, evt.time_range.start,
+                            evt.time_range.end))
+    device = {}
+    for evt in events:
+        if evt.device_type == DeviceType.CPU or evt.name.startswith("nccl:"):
+            continue
+        r = evt.time_range
+        if any(s == evt.device_resource_id and lo - 0.01 <= r.start
+               and r.end <= hi + 0.01 for s, lo, hi in windows):
+            add(device, evt)
+    return {"wall_ms": wall_ms / n, "host": host,
+            "ops": host_ops(events, n), "spans": spans, "device": device}
+
+
+def nccl_ops(torch, engines, batches):
+    """What NCCL did a step of fit_sgd: the collectives the host called,
+    their device spans, the device operations inside those spans (at one
+    rank NCCL may run a collective as a device-to-device copy instead of
+    a kernel), and where the wall the group adds goes on the host: the
+    top-level host operations it runs beyond the same steps without a
+    group (the c10d collectives among them), and the rest (Python between
+    the operations, the profiler's own cost)."""
+    got = _host_and_device_trace(torch, engines["nccl"], batches)
+    plain = _host_and_device_trace(torch, engines["plain"], batches)
+    ms = sum(d["ms"] for d in got["device"].values())
+    calls = sum(d["calls"] for d in got["device"].values())
+    extra_ms = got["wall_ms"] - plain["wall_ms"]
+    ops_ms = {k: sum(d["ms"] for d in r["ops"].values())
+              for k, r in (("nccl", got), ("plain", plain))}
+    c10d_ms = sum(d["ms"] for name, d in got["ops"].items()
+                  if name.startswith("c10d::"))
+    extra_ops = host_ops_diff(got["ops"], plain["ops"])
+    log(f"[multirank a2a] a step: NCCL collectives the host called "
+        f"{json.dumps(got['host'])}; their device spans "
+        f"{json.dumps(got['spans'])}; device operations inside them "
+        f"{json.dumps(got['device'])}, {calls:g} a step, {ms:.5f} ms")
+    log(f"[multirank a2a] host, traced, a step: wall {got['wall_ms']:.3f} ms "
+        f"with the group, {plain['wall_ms']:.3f} without (+{extra_ms:.3f}); "
+        f"top-level host operations {ops_ms['nccl']:.3f} ms with, "
+        f"{ops_ms['plain']:.3f} without (+{ops_ms['nccl'] - ops_ms['plain']:.3f}"
+        f"), of which the c10d collectives {c10d_ms:.3f}; the rest "
+        f"{extra_ms - ops_ms['nccl'] + ops_ms['plain']:.3f}. Operations the "
+        f"group adds (calls, ms a step): {json.dumps(extra_ops)}")
+    require(got["host"] and got["spans"],
+            "no NCCL collective in the group's trace")
+    require(got["device"], "no device operation inside NCCL's spans")
+    require(not plain["host"] and not plain["spans"],
+            "an NCCL collective in the trace of the steps without a group")
+    return {"nccl_calls_per_step": got["host"], "nccl_spans": got["spans"],
+            "nccl_device": got["device"], "nccl_ms_per_step": ms,
+            "traced_wall_ms": got["wall_ms"],
+            "traced_wall_ms_no_group": plain["wall_ms"],
+            "host_ops_ms": ops_ms["nccl"],
+            "host_ops_ms_no_group": ops_ms["plain"],
+            "c10d_host_ms": c10d_ms, "host_ops_added": extra_ops}
+
+
+def walls_in_turns(torch, engines, batches):
+    """Untraced wall ms a step of fit_sgd over `batches`, the engines in
+    turns: without a group, with, with, without."""
+    out = {"plain": [], "nccl": []}
+    for tag in ("plain", "nccl", "nccl", "plain"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engines[tag].fit_sgd(batches)
+        out[tag].append((time.perf_counter() - t) * 1e3 / len(batches))
+    log(f"[multirank a2a] untraced wall ms a step in turns (no group, "
+        f"NCCL, NCCL, no group): {out['plain'][0]:.3f}, {out['nccl'][0]:.3f}"
+        f", {out['nccl'][1]:.3f}, {out['plain'][1]:.3f}")
+    return out
+
+
+def collective_host_us(torch, dev, ctx, cap, max_hot, calls=500):
+    """Host µs a call of the two seams a step calls through the group, on
+    the step's shapes: `_all_to_all` of a (1, cap) int32 buffer and
+    `_psum` of a (max_hot,) f32 vector; and of the same seams with no
+    group (the identity the P = 1 path keeps); the calls back to back,
+    then one synchronize."""
+    from repro_torch.api import strategies
+
+    x = torch.zeros((1, cap), dtype=torch.int32, device=dev)
+    v = torch.zeros((max_hot,), device=dev)
+    alone = ctx._replace(groups=None)
+    out = {}
+    for name, fn in (("all_to_all", lambda: strategies._all_to_all(x, ctx)),
+                     ("psum", lambda: strategies._psum(v, ctx)),
+                     ("all_to_all_no_group",
+                      lambda: strategies._all_to_all(x, alone)),
+                     ("psum_no_group", lambda: strategies._psum(v, alone))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t) * 1e6 / calls
+    log(f"[multirank] host µs a call through the NCCL group ({calls} calls): "
+        f"_all_to_all (1, {cap}) int32 {out['all_to_all']:.2f}, _psum "
+        f"({max_hot},) f32 {out['psum']:.2f}; the same with no group (the "
+        f"identity) {out['all_to_all_no_group']:.3f} and "
+        f"{out['psum_no_group']:.3f}")
+    return out
+
+
+P8 = 8
+
+
+def _sum_bound(torch, m, mass):
+    """|d| allowed between two f32 sums of the same m terms in other
+    orders: each lies within (m - 1) 2^-24 sum|terms| of the exact sum."""
+    return 2.0 * torch.clamp(m - 1.0, min=0.0) * 2.0 ** -24 * mass
+
+
+def phase_p8(torch, dev, hot, results):
+    """The buffers of a P = 8 routing on one card: a global batch of
+    8 x 4096 samples, each rank's 4096 rows routed to 8 owners of 2^24
+    rows; the all_to_alls are transposes of the stacked (src, dst, cap)
+    buffers. Checks each owner's reduce against its plain version, the
+    run lengths the owners receive (runs longer than 1, C1), select_pack
+    on the 8-row send buffers bit for bit, and the concatenated owner
+    blocks against the P = 1 gradient of the same samples; times
+    segment_sum_sorted, owner_accumulate and select_pack at one owner's
+    (8, cap)."""
+    from repro_torch.core import dpmr, hot_sharding, sparse
+    from repro_torch.data import get_source
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.segment_sum import segment_sum_sorted
+    from repro_torch.kernels.select_pack import select_pack
+    from repro_torch.optim import compression
+
+    t0 = time.perf_counter()
+    batch = get_source("zipf_sparse", batch_size=P8 * BATCH,
+                       num_features=1 << LOG2_F, features_per_sample=K,
+                       signal_features=4096).batch(0)
+    gen_s = time.perf_counter() - t0
+    cfg = full_width_config()
+    f = 1 << LOG2_F
+    block = f // P8
+    cap = dpmr.capacity(cfg, BATCH, P8)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    table = torch.randn(f, generator=gen, device=dev) * 0.05
+    hot_vals = torch.randn(cfg.max_hot, generator=gen, device=dev) * 0.05
+    ids = torch.from_numpy(batch["ids"]).to(dev)
+    vals = torch.from_numpy(batch["vals"]).to(dev)
+    labels = torch.from_numpy(batch["labels"]).to(dev)
+    log(f"[p8] global batch {P8} x {BATCH} at 2^{LOG2_F} (host generation "
+        f"{gen_s:.2f} s); {P8} owners of {block} rows, cap {cap}")
+
+    srcs = []
+    for r in range(P8):
+        flat = ids[r * BATCH:(r + 1) * BATCH].reshape(-1)
+        hot_slot, is_hot, cold = hot_sharding.split_hot(flat, hot)
+        srcs.append((hot_slot, is_hot, cold,
+                     sparse.route_build(cold, P8, block, cap)))
+    overflow = [int(s[3].overflow) for s in srcs]
+    require(not any(overflow), f"P = 8 routing overflowed: {overflow}")
+    # the tiled all_to_all: row o of source s goes to owner o as row s
+    req = torch.stack([s[3].req_ids for s in srcs])          # (src, dst, cap)
+    recv = req.transpose(0, 1).contiguous()                  # (dst, src, cap)
+    resp = torch.stack([sparse.owner_apply(
+        recv[o], table[o * block:(o + 1) * block], o * block)
+        for o in range(P8)])
+    back = resp.transpose(0, 1).contiguous()                 # (src, dst, cap)
+    grads, send = [], []
+    for r, (hot_slot, is_hot, _, routing) in enumerate(srcs):
+        theta = (sparse.route_return(routing, back[r]) + torch.where(
+            is_hot, hot_vals[torch.clamp(hot_slot, min=0)], 0.0)
+                 ).reshape(BATCH, K)
+        rows = slice(r * BATCH, (r + 1) * BATCH)
+        if r == 0:
+            _sg_check(torch, "P = 8, rank 0's rows", vals[rows], theta,
+                      labels[rows])
+        g = ops.sigmoid_grad(vals[rows], theta, labels[rows])[0]
+        g = (g / float(P8 * BATCH)).reshape(-1)             # grad_scale mean
+        grads.append(g)
+        send.append(sparse.combine_grads(routing, g))
+    send = torch.stack(send)                                  # (src, dst, cap)
+    recv_g = send.transpose(0, 1).contiguous()               # (dst, src, cap)
+
+    blocks, hist, worst = [], {}, 0.0
+    for o in range(P8):
+        zeros = torch.zeros(block, device=dev)
+        got = ops.owner_accumulate(recv[o], recv_g[o], zeros.clone(),
+                                   o * block)
+        want = sparse.owner_accumulate(recv[o], recv_g[o], zeros.clone(),
+                                       o * block)
+        mass = sparse.owner_accumulate(recv[o], recv_g[o].abs(),
+                                       zeros.clone(), o * block)
+        m = sparse.owner_accumulate(recv[o], (recv[o] >= 0).float(),
+                                    zeros.clone(), o * block)
+        d = (got - want).abs()
+        ok = bool((d <= _sum_bound(torch, m, mass)).all())
+        key = torch.where(recv[o] >= 0, recv[o], 2 ** 31 - 1).reshape(-1)
+        key_s, order = torch.sort(key, stable=True)
+        ids_s = torch.where(key_s == 2 ** 31 - 1, -1, key_s).contiguous()
+        g_s = recv_g[o].reshape(-1)[order].contiguous()
+        err = _seg_case(torch, f"P = 8, owner {o}'s received buffer",
+                        ids_s, g_s, False)
+        _, lengths = torch.unique_consecutive(ids_s[ids_s >= 0],
+                                              return_counts=True)
+        for n_, c in zip(*torch.unique(lengths, return_counts=True)):
+            hist[int(n_)] = hist.get(int(n_), 0) + int(c)
+        worst = max(worst, float(d.max()))
+        log(f"[p8] owner {o}: owner_accumulate vs the plain scatter-add "
+            f"max|d|={float(d.max()):.3e} (tol 2 (m - 1) 2^-24 sum|g|, m "
+            f"the feature's received slots) ok={ok}; segment_sum max|d|="
+            f"{err:.3e}; longest run {int(lengths.max())}")
+        require(ok, f"owner_accumulate disagrees with the scatter-add at "
+                f"P = 8, owner {o}")
+        blocks.append(got)
+    log(f"[p8] run lengths in the 8 owners' received buffers: "
+        f"{json.dumps(dict(sorted(hist.items())))}")
+    require(max(hist) > 1, "no run longer than 1 in the P = 8 buffers")
+    grad8 = torch.cat(blocks)
+
+    # the same samples' gradient at P = 1: one owner of every row
+    cold1 = torch.cat([s[2] for s in srcs])
+    g1 = torch.cat(grads)
+    route1 = sparse.route_build(cold1, 1, f, dpmr.capacity(
+        cfg, P8 * BATCH, 1))
+    zeros = torch.zeros(f, device=dev)
+    grad1 = ops.owner_accumulate(route1.req_ids,
+                                 sparse.combine_grads(route1, g1),
+                                 zeros.clone(), 0)
+    mass1 = ops.owner_accumulate(route1.req_ids, sparse.combine_grads(
+        route1, g1.abs()), zeros.clone(), 0)
+    m1 = ops.owner_accumulate(route1.req_ids, sparse.combine_grads(
+        route1, (cold1 >= 0).float()), zeros.clone(), 0)
+    d = (grad8 - grad1).abs()
+    ok8 = bool((d <= _sum_bound(torch, m1, mass1)).all())
+    log(f"[p8] the 8 owners' gradient blocks vs the P = 1 gradient of the "
+        f"same {P8 * BATCH} samples: max|d|={float(d.max()):.3e}, "
+        f"{int((d > 0).sum())} of {int((m1 > 0).sum())} features differ "
+        f"(tol 2 (m - 1) 2^-24 sum|g|, m the feature's slots, up to "
+        f"{int(m1.max())}) ok={ok8}")
+    require(ok8, "the P = 8 gradient disagrees with the P = 1 one")
+    del grad1, mass1, m1, zeros, route1, table
+
+    # select_pack on each source's 8-row send buffer
+    k = compression.topk_count(cap, TOPK_FRAC)
+    sel_err = 0.0
+    for r in range(P8):
+        ids_r = srcs[r][3].req_ids
+        live = ids_r >= 0
+        carry = torch.where(live & (torch.rand(ids_r.shape, generator=gen,
+                                               device=dev) < 0.5),
+                            torch.randn(ids_r.shape, generator=gen,
+                                        device=dev) * (0.5 / BATCH), 0.0)
+        sel_err = max(sel_err, _select_case(
+            torch, f"P = 8, source {r}'s send", send[r], ids_r, carry, k))
+
+    # times at one owner's (8, cap) shape, as the kernel phase takes them
+    o = 0
+    key = torch.where(recv[o] >= 0, recv[o], 2 ** 31 - 1).reshape(-1)
+    key_s, order = torch.sort(key, stable=True)
+    ids_s = torch.where(key_s == 2 ** 31 - 1, -1, key_s).contiguous()
+    g_s = recv_g[o].reshape(-1)[order].contiguous()
+    n, n_live = ids_s.numel(), int((ids_s >= 0).sum())
+    seg = {"shape": [P8, cap], "run_lengths": hist, "max_abs_err": worst}
+    seg["bound_ms"], seg["bound_by"] = bound(8 * n + 4 * n_live, n_live)
+    _timed(torch, seg, lambda: segment_sum_sorted(ids_s, g_s), (),
+           lambda: ref.segment_sum_sorted_ref(ids_s, g_s))
+    _one_launch(torch, "segment_sum_sorted at P = 8", seg, 1)
+    acc = torch.zeros(block, device=dev)
+    oa = {"shape": [P8, cap]}
+    _timed(torch, oa, lambda: ops.owner_accumulate(recv[o], recv_g[o], acc,
+                                                   0), (),
+           lambda: sparse.owner_accumulate(recv[o], recv_g[o], acc, 0))
+    flat_ids = (recv[o] - o * block).reshape(-1).clamp(min=0).to(torch.int64)
+    oa["library_ms"], oa["library_call_ms"] = kernel_and_call_ms(
+        torch, lambda: acc.index_add_(0, flat_ids, recv_g[o].reshape(-1)), ())
+    ids_r = srcs[0][3].req_ids
+    carry = torch.zeros_like(send[0])
+    live = int((ids_r >= 0).sum())
+    sel = {"shape": [P8, cap], "k": k, "max_abs_err": sel_err}
+    sel["bound_ms"], sel["bound_by"] = bound(
+        8 * P8 * cap + 8 * live + 8 * P8 * k, live)
+    _timed(torch, sel, lambda: select_pack(send[0], ids_r, carry, k), (),
+           lambda: ref.select_pack_ref(send[0], ids_r, carry, k))
+    key = torch.where(ids_r >= 0, (send[0] + carry).abs(), -1.0)
+    sel["library_ms"], sel["library_call_ms"] = kernel_and_call_ms(
+        torch, lambda: torch.topk(key, k, dim=1, sorted=True), ())
+    for tag, e in (("segment_sum_sorted", seg), ("owner_accumulate", oa),
+                   ("select_pack", sel)):
+        log(f"[p8] {tag} at (8, {cap}): device ms={e['ms']:.5f} plain ms="
+            f"{e['plain_ms']:.5f}"
+            + (f" bound_ms={e['bound_ms']:.5f} ({e['bound_by']})"
+               if "bound_ms" in e else "")
+            + (f" library ms={e['library_ms']:.5f}" if "library_ms" in e
+               else "")
+            + f"; one call by CUDA events {e['call_ms']:.4f} ms")
+    results["segment_sum_sorted"]["p8"] = seg
+    results["select_pack"]["p8"] = sel
+    results["owner_accumulate"]["p8"] = oa
+    del recv, recv_g, send, back, resp, req
+    torch.cuda.empty_cache()
+    return {"gen_s": gen_s, "cap": cap, "run_lengths": hist,
+            "grad_max_abs_err": float(d.max())}
 
 
 def _same_state(torch, a, b, fields=("cold", "hot", "strat")):
@@ -1601,6 +2096,8 @@ def main():
     results = phase_kernels(torch, dev, train[0], hot)
     engine = phase_engine(torch, dev, results, train, test, hot)
     engine["batch_gen_s"] = gen_s
+    multirank = phase_multirank(torch, dev, train, hot)
+    p8 = phase_p8(torch, dev, hot, results)
     parity = phase_parity(torch, dev)
     del train, test
     torch.cuda.empty_cache()
@@ -1627,7 +2124,8 @@ def main():
          "kernel_resources": resources, "kernels": kernels,
          "owner_accumulate": results["owner_accumulate"],
          "reduces": results["reduces"],
-         "engine": engine, "parity": parity, "serve": served,
+         "engine": engine, "multirank": multirank, "p8": p8,
+         "parity": parity, "serve": served,
          "dense_parity": dense_parity}, indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,11 +1,14 @@
-"""PyTorch/CUDA port of the DPMR system, for one NVIDIA H100.
+"""PyTorch/CUDA port of the DPMR system, for NVIDIA H100s.
 
 The JAX package `repro` is the reference; this package mirrors it module
 for module and never imports it. What it covers today:
 
-- the sparse face's single-card trainer: `DPMREngine.fit_sgd`, `fit`,
-  `predict` and `evaluate` on the `a2a`, `allgather`, `psum_scatter`,
-  `compressed_reduce` and `topk_reduce` strategies;
+- the sparse face's trainer, on one rank or on P ranks of a
+  `torch.distributed` mesh (`launch.mesh`, `launch.train --sparse`):
+  `DPMREngine.fit_sgd`, `fit`, `predict` and `evaluate` on the `a2a`,
+  `allgather`, `psum_scatter`, `compressed_reduce`, `topk_reduce`,
+  `overlap_a2a`, `hier_a2a`, `hier_a2a+topk` and `hier_a2a+int8`
+  strategies;
 - the dense face's serving path: prefill and greedy decode of the dense
   and vlm models (yi-6b, granite-8b, granite-34b, llama3-405b,
   chameleon-34b; `models.registry`, `train.serve.greedy_decode`,

@@ -1,5 +1,5 @@
-"""`DPMREngine` — the façade over the DPMR sparse core, on one card: the
-counterpart of `repro.api.engine`.
+"""`DPMREngine` — the façade over the DPMR sparse core: the counterpart
+of `repro.api.engine`.
 
     from repro_torch import DPMREngine
 
@@ -8,6 +8,13 @@ counterpart of `repro.api.engine`.
     eng.fit(batch_iter_fn)                 # paper-regime full-batch GD
     probs = eng.predict(batch)
     metrics = eng.evaluate(test_batches)
+
+Given a `DeviceMesh` (`launch.mesh.make_host_mesh`), every rank of it
+runs the same calls on the same GLOBAL batches, as the reference's
+processes do: each rank keeps its own block of the feature table and
+takes its own rows of every batch (`put_batch`), the strategies'
+collectives join the ranks, and `predict`, `predict_padded` and
+`evaluate` give every rank the whole batch's results.
 
 The engine runs on the card unless the caller asks for the CPU with
 `device="cpu"`; with no card and no such request it raises rather than
@@ -25,24 +32,39 @@ import itertools
 import numpy as np
 import torch
 
-from repro_torch.api.strategies import get_strategy
+from repro_torch.api.strategies import _all_gather, get_strategy
 from repro_torch.configs.base import DPMRConfig
 from repro_torch.core import dpmr, hot_sharding
 from repro_torch.core.dpmr import StepFns
 from repro_torch.data.sources import DataSource
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_rank
 
 BATCH_DTYPES = {"ids": torch.int32, "vals": torch.float32,
                 "labels": torch.int32}
 
 
-def put_batch(batch: dict, device) -> dict:
-    """Host→device placement of a batch dict, in the kernels' dtypes;
-    tensors already on the device in those dtypes pass through."""
-    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                               else v).to(device=device,
-                                          dtype=BATCH_DTYPES.get(k))
-            for k, v in batch.items() if k in BATCH_DTYPES}
+def put_batch(batch: dict, device, mesh=None) -> dict:
+    """Host→device placement of this rank's rows of a global batch dict,
+    in the kernels' dtypes: rows [r·B/P, (r+1)·B/P) on rank r of `mesh`
+    (all of them without one). Tensors already on the device in those
+    dtypes pass through. Raises when the rows do not split evenly over
+    the P ranks."""
+    p, r = dpmr.num_shards(mesh), mesh_rank(mesh)
+    out = {}
+    for k, v in batch.items():
+        if k not in BATCH_DTYPES:
+            continue
+        if p > 1:
+            if len(v) % p:
+                raise ValueError(f"batch {k!r} of {len(v)} rows is not a "
+                                 f"multiple of P={p}")
+            n = len(v) // p
+            v = v[r * n:(r + 1) * n]
+        out[k] = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                                 else v).to(device=device,
+                                            dtype=BATCH_DTYPES[k])
+    return out
 
 
 def binary_prf_metrics(predict_fn: Callable[[dict], np.ndarray],
@@ -78,11 +100,13 @@ def binary_prf_metrics(predict_fn: Callable[[dict], np.ndarray],
 
 
 def hot_ids_from_corpus(cfg: DPMRConfig, sample_batches: Iterable[dict], *,
-                        device=None) -> torch.Tensor:
+                        device=None, num_shards: int = 1) -> torch.Tensor:
     """initParameters-time frequency statistics -> the hot set, counted on
-    `device` (the card unless the caller asks for the CPU)."""
+    `device` (the card unless the caller asks for the CPU) over the
+    feature space padded for `num_shards` ranks. Every rank counts the
+    same global batches, so every rank gets the same replicated set."""
     dev = resolve_device(device)
-    f = dpmr.padded_features(cfg)
+    f = dpmr.padded_features(cfg, num_shards)
     counts = torch.zeros((f,), dtype=torch.int32, device=dev)
     for b in sample_batches:
         counts += hot_sharding.feature_counts(
@@ -106,13 +130,17 @@ def _source_epoch(src):
 
 
 class DPMREngine:
-    """State + step functions for sparse DPMR on one card.
+    """State + step functions for sparse DPMR on one rank.
 
     Parameters
     ----------
     cfg:         DPMRConfig (features, strategy, optimizer, schedule, ...)
     device:      where state and steps live; None = the card (raises when
                  there is none), "cpu" for the plain versions on the host
+    mesh:        torch DeviceMesh (`launch.mesh.make_host_mesh`) whose
+                 ranks are the DPMR nodes, each holding samples and
+                 parameters; None = one rank and no process group. A mesh
+                 over NCCL needs a CUDA device, one over gloo the CPU
     cap_factor:  a2a capacity factor (slots per (src,dst) pair = cap_factor
                  x the uniform mean)
     hot_ids:     Zipf-head ids (see `hot_ids_from_corpus`); None disables
@@ -121,13 +149,18 @@ class DPMREngine:
     max_cached_fns: LRU bound on the per-batch-size StepFns cache
     """
 
-    def __init__(self, cfg: DPMRConfig, *, device=None,
+    def __init__(self, cfg: DPMRConfig, *, device=None, mesh=None,
                  cap_factor: float = 4.0, hot_ids=None,
                  state: dpmr.DPMRState | None = None,
                  max_cached_fns: int = 8):
         self.cfg = cfg
         get_strategy(cfg.distribution)      # raises on one not ported
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot run an "
+                             f"engine on {self.device}")
+        self.mesh = mesh
+        self.num_shards = dpmr.num_shards(mesh)
         self.cap_factor = cap_factor
         if max_cached_fns < 1:
             raise ValueError(f"max_cached_fns must be >= 1: {max_cached_fns}")
@@ -135,7 +168,7 @@ class DPMREngine:
         self._fns: dict[int, StepFns] = {}
         self._schedule = dpmr.make_schedule(cfg)
         self.state = state if state is not None else dpmr.init_state(
-            cfg, self.device, hot_ids)
+            cfg, self.device, hot_ids, mesh)
 
     # -- step-function cache -------------------------------------------------
 
@@ -143,7 +176,7 @@ class DPMREngine:
         """StepFns for a given GLOBAL batch size (LRU-cached)."""
         fns = self._fns.pop(batch_size, None)
         if fns is None:
-            fns = dpmr.make_step_fns(self.cfg, batch_size,
+            fns = dpmr.make_step_fns(self.cfg, batch_size, mesh=self.mesh,
                                      cap_factor=self.cap_factor)
         self._fns[batch_size] = fns     # move to the end: most recently used
         while len(self._fns) > self.max_cached_fns:
@@ -159,7 +192,7 @@ class DPMREngine:
         return next(reversed(self._fns.values()))
 
     def put_batch(self, batch: dict) -> dict:
-        return put_batch(batch, self.device)
+        return put_batch(batch, self.device, self.mesh)
 
     def learning_rate(self) -> float:
         """Schedule value at the current step."""
@@ -243,19 +276,21 @@ class DPMREngine:
     # -- inference ----------------------------------------------------------
 
     def predict(self, batch: dict) -> np.ndarray:
-        """Algorithm 9: probabilities for a test batch ({ids, vals})."""
+        """Algorithm 9: probabilities for a test batch ({ids, vals}); every
+        rank gets the whole batch's (an all_gather of the ranks' rows)."""
         fns = self.step_fns(len(batch["ids"]))
         probs = fns.predict(self.state, self.put_batch(
             {k: batch[k] for k in ("ids", "vals")}))
-        return probs.cpu().numpy()
+        return _all_gather(probs, fns.ctx).cpu().numpy()
 
     def bucket_for(self, n: int, buckets: Iterable[int] | None = None) -> int:
         """The padded batch size `predict_padded` would run `n` rows at.
 
-        Default ladder: the smallest power of two that holds `n` (times
-        the shard count, 1 on one card). An explicit `buckets` ladder must
-        hold `n`; a larger `n` is an error."""
-        p = 1
+        Default ladder: the smallest power-of-two multiple of the shard
+        count P that holds `n` (P, 2P, 4P, ...). An explicit `buckets`
+        ladder must be multiples of P and hold `n`; a larger `n` is an
+        error."""
+        p = self.num_shards
         if n <= 0:
             raise ValueError(f"batch size must be positive: {n}")
         if buckets is None:

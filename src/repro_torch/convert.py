@@ -2,9 +2,13 @@
 
 `state_from_numpy` takes the 7 leaves of a `DPMRState` (the JAX
 package's or this one's, in field order: cold, hot, hot_ids, cold_acc,
-hot_acc, step, strat) as numpy arrays and builds the port's state on
-`device`; `state_to_numpy` goes the other way. The same state then gives
-the same steps in both packages, up to f32 rounding.
+hot_acc, step, strat) as numpy arrays, in the reference's global layout,
+and builds the port's state on `device`: on rank r of a mesh, its blocks
+of the sharded leaves (cold, cold_acc and strat, cut in P equal blocks
+along their only axis, as the reference's shardings cut them) and the
+replicated ones whole. `state_to_numpy` goes the other way, gathering the
+blocks of every rank. The same state then gives the same steps in both
+packages, up to f32 rounding.
 
 `params_from_numpy` takes the reference's dense params pytree as nested
 dicts of numpy arrays (layers stacked on a leading axis, as
@@ -20,28 +24,53 @@ from collections.abc import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.dpmr import DPMRState
+from repro_torch.core.dpmr import DPMRState, num_shards
+from repro_torch.launch.mesh import mesh_rank
 from repro_torch.models import transformer
 
 _DTYPES = (np.float32, np.float32, np.int32, np.float32, np.float32,
            np.int32, np.float32)
+_SHARDED = ("cold", "cold_acc", "strat")   # cut in P blocks over the mesh
 
 
-def state_from_numpy(leaves: Sequence, device) -> DPMRState:
-    """The port's DPMRState from 7 numpy leaves in field order (copied)."""
+def state_from_numpy(leaves: Sequence, device, mesh=None) -> DPMRState:
+    """This rank's DPMRState from 7 global numpy leaves in field order
+    (copied)."""
     if len(leaves) != len(DPMRState._fields):
         raise ValueError(f"expected {len(DPMRState._fields)} leaves "
                          f"{DPMRState._fields}, got {len(leaves)}")
-    return DPMRState(*(
-        torch.tensor(np.asarray(leaf, dtype=dt), device=device)
-        for leaf, dt in zip(leaves, _DTYPES, strict=True)))
+    p, r = num_shards(mesh), mesh_rank(mesh)
+    out = []
+    for name, leaf, dt in zip(DPMRState._fields, leaves, _DTYPES,
+                              strict=True):
+        leaf = np.asarray(leaf, dtype=dt)
+        if name in _SHARDED:
+            if leaf.shape[0] % p:
+                raise ValueError(f"{name}: {leaf.shape[0]} rows do not "
+                                 f"split over {p} ranks")
+            n = leaf.shape[0] // p
+            leaf = leaf[r * n:(r + 1) * n]
+        out.append(torch.tensor(leaf, device=device))
+    return DPMRState(*out)
 
 
-def state_to_numpy(state: DPMRState) -> tuple[np.ndarray, ...]:
-    """The 7 leaves of `state` as host numpy arrays, in field order."""
-    return tuple(t.detach().cpu().numpy() for t in state)
+def state_to_numpy(state: DPMRState, mesh=None) -> tuple[np.ndarray, ...]:
+    """The 7 leaves of `state` as host numpy arrays (copies) in the
+    reference's global layout, in field order; on a mesh, an all_gather of
+    every rank's blocks (every rank must call it)."""
+    out = []
+    for name, t in zip(DPMRState._fields, state, strict=True):
+        if name in _SHARDED and mesh is not None:
+            whole = t.new_empty((num_shards(mesh) * t.shape[0],))
+            dist.all_gather_into_tensor(whole, t.contiguous())
+            t = whole
+        # a copy: a CPU tensor's .numpy() would share its memory, and the
+        # next step updates the state in place
+        out.append(t.detach().to("cpu", copy=True).numpy())
+    return tuple(out)
 
 
 def _pairs(model: transformer.Transformer):

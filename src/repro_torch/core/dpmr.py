@@ -1,5 +1,5 @@
-"""Distributed Parameter Map-Reduce on one card: the counterpart of
-`repro.core.dpmr`.
+"""Distributed Parameter Map-Reduce over `torch.distributed`: the
+counterpart of `repro.core.dpmr`.
 
 One train step runs the paper's stages in order:
 
@@ -31,8 +31,12 @@ features `cold` and `cold_acc` are 512 MiB each. Treat a state passed to
 `train_step` or `apply_update` as updated; `grad_step` and `predict` do
 not touch it.
 
-On one card there is one shard (P = 1) and the all_to_all stages are the
-identity (`api.strategies._all_to_all`).
+The reference runs the step as one `shard_map` program over every mesh
+axis. Here each rank of a `DeviceMesh` (`launch.mesh`) runs the step on
+its own rows of the global batch and its own block of the table, and the
+strategies' collectives join the ranks. Without a mesh there is one rank
+(P = 1) and no process group: the collectives are the identity
+(`api.strategies._all_to_all`).
 """
 from __future__ import annotations
 
@@ -48,19 +52,29 @@ from repro_torch.optim import optimizers, schedules
 
 
 class DPMRState(NamedTuple):
-    cold: torch.Tensor       # (F,) f32 feature table (owner block)
+    """One rank's state: its block of the sharded leaves, and the
+    replicated ones whole (the reference's global arrays, cut as its
+    shardings cut them; `convert` goes between the two)."""
+
+    cold: torch.Tensor       # (F/P,) f32 this rank's block of the table
     hot: torch.Tensor        # (max_hot,) f32 replicated Zipf head
     hot_ids: torch.Tensor    # (max_hot,) int32 sorted, INT_MAX padded
-    cold_acc: torch.Tensor   # (F,) optimizer accumulator, like cold
+    cold_acc: torch.Tensor   # (F/P,) optimizer accumulator, like cold
     hot_acc: torch.Tensor    # (max_hot,) optimizer accumulator
     step: torch.Tensor       # () int32
-    strat: torch.Tensor      # (P*L,) f32 persistent strategy carry: L is
-    #                          the strategy's carry length, 1 (a zero
-    #                          placeholder) for a stateless one
+    strat: torch.Tensor      # (L,) f32 this rank's persistent strategy
+    #                          carry: L is the strategy's carry length, 1
+    #                          (a zero placeholder) for a stateless one
 
 
-def padded_features(cfg: DPMRConfig, num_shards: int = 1) -> int:
-    return -(-cfg.num_features // num_shards) * num_shards
+def num_shards(mesh) -> int:
+    """P = ranks of `mesh` (1 without one)."""
+    return 1 if mesh is None else int(mesh.size())
+
+
+def padded_features(cfg: DPMRConfig, p: int = 1) -> int:
+    """F rounded up to a multiple of the shard count `p`."""
+    return -(-cfg.num_features // p) * p
 
 
 def capacity_for_shards(cfg: DPMRConfig, batch_local: int, p: int,
@@ -72,38 +86,51 @@ def capacity_for_shards(cfg: DPMRConfig, batch_local: int, p: int,
     return int(min(n, max(16, -(-int(factor * mean) // 8) * 8)))
 
 
-def capacity(cfg: DPMRConfig, batch_local: int, num_shards: int = 1,
+def capacity(cfg: DPMRConfig, batch_local: int, p: int = 1,
              factor: float = 4.0) -> int:
-    return capacity_for_shards(cfg, batch_local, num_shards, factor)
+    return capacity_for_shards(cfg, batch_local, p, factor)
 
 
-def make_strategy_context(cfg: DPMRConfig, num_shards: int = 1,
-                          cap: int = 0):
-    """The `StrategyContext` of this geometry (rank 0 of `num_shards`)."""
+def make_strategy_context(cfg: DPMRConfig, mesh=None, cap: int = 0):
+    """The `StrategyContext` of this rank of `mesh`: its rank, the
+    (outer, inner) tiers of `launch.mesh.tier_shards` and the mesh's
+    process groups. Without a mesh: one rank and no group. `cap` is the
+    per-(src,dst) a2a capacity (0 where only the geometry matters)."""
     # late import: repro_torch.api.strategies imports from repro_torch.core
     from repro_torch.api.strategies import StrategyContext
+    from repro_torch.launch import mesh as mesh_lib
 
+    p = num_shards(mesh)
+    if mesh is None:
+        po, rank, groups = 1, 0, None
+    else:
+        po, _ = mesh_lib.tier_shards(mesh)
+        rank = mesh_lib.mesh_rank(mesh)
+        groups = mesh_lib.process_groups(mesh)
     return StrategyContext(
-        num_shards=num_shards,
-        block_size=padded_features(cfg, num_shards) // num_shards,
-        capacity=cap, topk_frac=cfg.topk_frac)
+        num_shards=p, block_size=padded_features(cfg, p) // p,
+        capacity=cap, topk_frac=cfg.topk_frac, rank=rank, outer_shards=po,
+        groups=groups)
 
 
-def strategy_carry_len(cfg: DPMRConfig, num_shards: int = 1) -> int:
+def strategy_carry_len(cfg: DPMRConfig, mesh=None) -> int:
     """Per-rank length L of the strategy's persistent carry (1 when the
     strategy is stateless: the placeholder keeps the state's layout the
     same for every strategy)."""
     from repro_torch.api.strategies import get_strategy
 
     carry = get_strategy(cfg.distribution).init_carry(
-        make_strategy_context(cfg, num_shards), device="meta")
+        make_strategy_context(cfg, mesh), device="meta")
     return 1 if carry is None else int(carry.shape[0])
 
 
 def init_state(cfg: DPMRConfig, device, hot_ids=None,
-               num_shards: int = 1) -> DPMRState:
+               mesh=None) -> DPMRState:
+    """Zeros: this rank's (F/P,) blocks and (L,) carry, and the whole
+    replicated hot set."""
     device = torch.device(device)
-    f = padded_features(cfg, num_shards)
+    p = num_shards(mesh)
+    f = padded_features(cfg, p) // p
 
     def zeros(n):
         return torch.zeros((n,), dtype=torch.float32, device=device)
@@ -115,7 +142,7 @@ def init_state(cfg: DPMRConfig, device, hot_ids=None,
     return DPMRState(zeros(f), zeros(cfg.max_hot), hot_ids, zeros(f),
                      zeros(cfg.max_hot),
                      torch.zeros((), dtype=torch.int32, device=device),
-                     zeros(num_shards * strategy_carry_len(cfg, num_shards)))
+                     zeros(strategy_carry_len(cfg, mesh)))
 
 
 def optimize(cfg: DPMRConfig, theta, acc, grad, lr):
@@ -151,7 +178,7 @@ def _device_fwd(cfg, strategy, ctx, cold_loc, hot, hot_ids, ids, vals):
 def _device_grads(cfg, strategy, ctx, cold_loc, grads_slot, fwd, aux,
                   carry, stateful, accumulating=False):
     """Reduce stages: per-feature sums delivered to the owner, the
-    hot-set gradient (summed over ranks: the identity at P = 1), and the
+    hot-set gradient summed over ranks (`strategies._psum`), and the
     strategy's new carry.
 
     `carry` is this rank's slice of `DPMRState.strat`; a stateful strategy
@@ -160,6 +187,8 @@ def _device_grads(cfg, strategy, ctx, cold_loc, grads_slot, fwd, aux,
     caller discards the new carry; it reaches the strategy as
     `fwd["accumulate"]`, so a lossy strategy takes its exact reduce there
     and leaves the carry alone."""
+    from repro_torch.api.strategies import _psum
+
     gflat = grads_slot.reshape(-1)
     if stateful:
         grad_cold, carry_new = strategy.reduce(
@@ -168,12 +197,14 @@ def _device_grads(cfg, strategy, ctx, cold_loc, grads_slot, fwd, aux,
     else:
         grad_cold = strategy.reduce(ctx, cold_loc, gflat, fwd)
         carry_new = carry
-    return (grad_cold, hot_grads(cfg, gflat, aux["hot_slot"], aux["is_hot"]),
-            carry_new)
+    grad_hot = _psum(hot_grads(cfg, gflat, aux["hot_slot"], aux["is_hot"]),
+                     ctx)
+    return grad_cold, grad_hot, carry_new
 
 
 def hot_grads(cfg, gflat, hot_slot, is_hot):
-    """(max_hot,) hot-set gradient: the hot slots' sum per hot slot.
+    """(max_hot,) hot-set gradient of this rank's slots: the hot slots'
+    sum per hot slot.
 
     The Zipf head collides heavily here, so the sum is not a scatter-add
     (on the card `index_add_` adds in atomic order, and the result changes
@@ -190,12 +221,24 @@ def hot_grads(cfg, gflat, hot_slot, is_hot):
     return ghot[:cfg.max_hot]
 
 
-def _metrics(probs, labels, nll, overflow) -> dict:
+def _metrics(ctx, probs, labels, nll, overflow) -> dict:
+    """Loss and accuracy as the mean over ranks of the ranks' means (the
+    reference's pmean), overflow as their sum (its psum): one sum in rank
+    order of the three, in f64, which holds each count exactly. Without a
+    process group they are this rank's own."""
     y = labels.to(torch.float32)
     pred = (probs >= 0.5).to(torch.float32)
-    return {"loss": torch.mean(nll),
-            "accuracy": torch.mean((pred == y).to(torch.float32)),
-            "overflow": overflow}
+    loss = torch.mean(nll)
+    acc = torch.mean((pred == y).to(torch.float32))
+    if ctx.groups is None:
+        return {"loss": loss, "accuracy": acc, "overflow": overflow}
+    from repro_torch.api.strategies import _psum
+
+    tot = _psum(torch.stack([loss, acc, overflow.to(loss.dtype)]).to(
+        torch.float64), ctx)
+    return {"loss": (tot[0] / ctx.num_shards).to(torch.float32),
+            "accuracy": (tot[1] / ctx.num_shards).to(torch.float32),
+            "overflow": tot[2].to(torch.int32)}
 
 
 # ---------------------------------------------------------------------------
@@ -225,24 +268,27 @@ class StepFns(NamedTuple):
     ctx: object = None       # StrategyContext of these steps
 
 
-def make_step_fns(cfg: DPMRConfig, batch_size: int, *,
-                  num_shards: int = 1, cap_factor: float = 4.0) -> StepFns:
-    """Step functions for a GLOBAL batch of `batch_size` samples.
+def make_step_fns(cfg: DPMRConfig, batch_size: int, *, mesh=None,
+                  cap_factor: float = 4.0) -> StepFns:
+    """Step functions of this rank of `mesh` (None: one rank, no process
+    group) for a GLOBAL batch of `batch_size` samples.
 
-    Batches are dicts of tensors on the state's device: ids (B, K) int32,
-    vals (B, K) f32, labels (B,) int32. They run where their tensors lie:
-    on the card the map body and the owner reduce launch the CUDA kernels
-    (`kernels.ops`), on the CPU they take the plain versions."""
+    Each rank's steps take its own B/P rows of the global batch (see
+    `api.engine.put_batch`): dicts of tensors on the state's device, ids
+    (B/P, K) int32, vals (B/P, K) f32, labels (B/P,) int32. They run where
+    their tensors lie: on the card the map body and the owner reduce
+    launch the CUDA kernels (`kernels.ops`), on the CPU they take the
+    plain versions. `predict` returns this rank's rows' probabilities."""
     # late import: repro_torch.api.strategies imports from this package
     from repro_torch.api.strategies import get_strategy
 
-    p = num_shards
+    p = num_shards(mesh)
     f = padded_features(cfg, p)
     if batch_size % p:
         raise ValueError(f"batch {batch_size} is not a multiple of P={p}")
     cap = capacity(cfg, batch_size // p, p, cap_factor)
     strategy = get_strategy(cfg.distribution)
-    ctx = make_strategy_context(cfg, p, cap)
+    ctx = make_strategy_context(cfg, mesh, cap)
     stateful = strategy.init_carry(ctx, device="meta") is not None
     sched = make_schedule(cfg)
 
@@ -256,8 +302,8 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *,
         grad_cold, grad_hot, carry = _device_grads(
             cfg, strategy, ctx, state.cold, grads_slot, fwd, aux,
             state.strat, stateful, accumulating)
-        return grad_cold, grad_hot, carry, _metrics(probs, labels, nll,
-                                                    aux["overflow"])
+        return grad_cold, grad_hot, carry, _metrics(
+            ctx, probs, labels, nll, aux["overflow"])
 
     @torch.no_grad()
     def train_step(state: DPMRState, batch):

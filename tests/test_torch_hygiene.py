@@ -51,11 +51,25 @@ def test_engine_without_device_needs_a_card():
 @pytest.mark.parametrize("dist", ["overlap_a2a", "hier_a2a", "auto",
                                   "no_such_strategy"])
 def test_other_distributions_raise(dist):
-    from repro_torch import DPMRConfig, DPMREngine
+    """`auto` (the autotuner, not ported) and an unknown name raise;
+    overlap_a2a and hier_a2a, which differ from a2a only across ranks or
+    tiers, build and train bit for bit as a2a at P = 1."""
+    from repro_torch import DPMRConfig, DPMREngine, get_source
 
-    with pytest.raises(KeyError, match=f"{dist}.*ROADMAP queue A"):
-        DPMREngine(DPMRConfig(num_features=64, distribution=dist),
-                   device="cpu")
+    kw = dict(num_features=1 << 10, max_features_per_sample=8, max_hot=8,
+              learning_rate=1.0)
+    if dist in ("auto", "no_such_strategy"):
+        with pytest.raises(KeyError, match=f"{dist}.*ROADMAP queue A"):
+            DPMREngine(DPMRConfig(distribution=dist, **kw), device="cpu")
+        return
+    src = get_source("zipf_sparse", batch_size=32, num_batches=2,
+                     num_features=1 << 10, features_per_sample=8)
+    got = DPMREngine(DPMRConfig(distribution=dist, **kw), device="cpu")
+    want = DPMREngine(DPMRConfig(distribution="a2a", **kw), device="cpu")
+    assert [h["loss"] for h in got.fit_sgd(src)] == \
+        [h["loss"] for h in want.fit_sgd(src)]
+    for a, b in zip(got.state, want.state, strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("field", ["kernel_impl", "topk_frac", "seed"])
@@ -81,7 +95,7 @@ def test_multi_rank_all_to_all_raises():
 
     x = torch.zeros((2, 4))
     assert _all_to_all(x, StrategyContext(1, 8, 4)) is x
-    with pytest.raises(NotImplementedError, match="queue A"):
+    with pytest.raises(NotImplementedError, match="needs a process group"):
         _all_to_all(x, StrategyContext(2, 8, 4))
 
 

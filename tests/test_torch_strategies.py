@@ -37,7 +37,8 @@ ATOL = 1e-5
 F, K, B = 1 << 12, 16, 64
 CORPUS = dict(num_features=F, features_per_sample=K, signal_features=256)
 STATE = ("cold", "hot", "cold_acc", "hot_acc", "strat")
-PORTED = ["a2a", "allgather", "compressed_reduce", "psum_scatter",
+PORTED = ["a2a", "allgather", "compressed_reduce", "hier_a2a",
+          "hier_a2a+int8", "hier_a2a+topk", "overlap_a2a", "psum_scatter",
           "topk_reduce"]
 
 
@@ -145,14 +146,14 @@ def test_state_round_trip_with_carry_then_one_step(batches, mesh):
 
 @pytest.mark.parametrize("name", PORTED)
 def test_carry_lengths_and_wire_models_match_jax(name, mesh):
-    """init_carry, the state's carry length and the single-tier wire model
+    """init_carry, the state's carry length and the two-tier wire model
     at P = 8 equal the reference's."""
     kw = _kw(name, 0.1)
     cap = dpmr.capacity(DPMRConfig(**kw), B)
     with compat.set_mesh(mesh):
         jctx = jdpmr.make_strategy_context(JaxConfig(**kw), mesh, cap)
         jlen = jdpmr.strategy_carry_len(JaxConfig(**kw), mesh)
-    tctx = dpmr.make_strategy_context(DPMRConfig(**kw), 1, cap)
+    tctx = dpmr.make_strategy_context(DPMRConfig(**kw), None, cap)
     assert tctx.topk_frac == jctx.topk_frac == 0.1
     jc = jax_get_strategy(name).init_carry(jctx)
     tc = get_strategy(name).init_carry(tctx)
@@ -164,8 +165,7 @@ def test_carry_lengths_and_wire_models_match_jax(name, mesh):
     assert dpmr.init_state(DPMRConfig(**kw), "cpu").strat.shape == (jlen,)
     wide = dict(num_shards=8, block_size=F // 8, capacity=cap, topk_frac=0.1)
     assert get_strategy(name).bytes_per_device(StrategyContext(**wide)) == \
-        jax_get_strategy(name).bytes_per_device(
-            JaxContext(axes=(), **wide)).total
+        jax_get_strategy(name).bytes_per_device(JaxContext(axes=(), **wide))
 
 
 def test_registry_lists_ported_and_takes_a_decorated_class(batches):
