@@ -41,7 +41,32 @@ Phases, in order; any failure exits non-zero:
               before and read just after, a full-batch fit iteration, a
               profiled window of 8 steps, evaluate on 3 held-out batches
               (start=1000)
-  5. multirank  the same engine through an NCCL process group of one
+  5. dataplane  at configuration 1's width: a file corpus of the 20
+              training batches (`write_file_corpus`, seconds and bytes);
+              a2a for 20 steps fed 8 ways in turns (A B ... B A), each
+              with the launch counters set to 0 just before and read just
+              after and its state bit-identical to the first resident
+              run's: batches resident on the card; ShardedLoader over
+              the file corpus with prefetch 2 and with prefetch 0; a
+              prefetching loader over batches in memory; and, just
+              before each step, a host batch placed (put_batch), a
+              resident batch cloned, a batch copied from host memory
+              pinned once, a resident batch after a host copy of its
+              bytes. Each step is split at the hand-over into fetching
+              and training; the consumer's wait a batch; profiled
+              windows of 8 steps, resident and loader-fed (idle share,
+              the host operations the loader adds); placing one batch
+              timed and traced; 4 steps from a loader that synthesises
+              zipf_sparse batches beside the host's time a batch; a 2^27
+              checkpoint's cost (save blocking and asynchronous, the
+              snapshot's device time, wait, restore, bytes); a resume
+              for a2a and topk_reduce (10 steps, save(block=False), 10
+              more at once; a new engine and loader restore and train
+              10) bit-identical to the uninterrupted engine, the file
+              holding the pre-step bits; `auto` resolved on the card and
+              the CPU, and its ranking at P = 1, 8 and (pod 2, data 4).
+              Its files live under build/ and are deleted at the end
+  6. multirank  the same engine through an NCCL process group of one
               rank (a file store, device_id set): a2a and topk_reduce for
               8 steps, overlap_a2a for 4, each from the same state on the
               same batches as an engine with no group; the states after
@@ -52,7 +77,7 @@ Phases, in order; any failure exits non-zero:
               and without the group, walls in turns, the host operations
               the group adds a step (the c10d collectives among them)
               against the wall it adds, host µs of a collective
-  6. p8       the buffers of a P = 8 routing on one card: a global batch
+  7. p8       the buffers of a P = 8 routing on one card: a global batch
               of 8 x 4096 samples at 2^27, each rank's rows routed to 8
               owners of 2^24 rows, the all_to_alls as transposes of the
               stacked buffers; each owner's owner_accumulate and
@@ -62,10 +87,10 @@ Phases, in order; any failure exits non-zero:
               for bit, the 8 owners' gradient against the P = 1 gradient
               of the same samples; segment_sum_sorted, owner_accumulate
               and select_pack timed at one owner's (8, cap)
-  7. parity   both strategies at 2^20 features on the card and on the CPU
+  8. parity   both strategies at 2^20 features on the card and on the CPU
               from the same batches; run-to-run bit reproducibility of
               the card's gradient step and of topk_reduce's carry
-  8. attention  yi-6b at full width (32 layers, bf16) built on the card
+  9. attention  yi-6b at full width (32 layers, bf16) built on the card
               from a torch.Generator seeded 0; `flash_attention` against
               its plain version on layer 0's q, k, v of a (1, 4096)
               prefill, and on adversarial shapes (D = 64, MHA, MQA with
@@ -74,12 +99,12 @@ Phases, in order; any failure exits non-zero:
               with its plain version and scaled_dot_product_attention as
               the yardstick; the timed call's own output held to the
               plain version, and 3 calls bit-identical
-  9. serve    greedy_decode of yi-6b, batch 8 x prompt 4096 (numpy seed
+  10. serve   greedy_decode of yi-6b, batch 8 x prompt 4096 (numpy seed
               0), 32 steps, with the launch counters set to 0 just before
               and read just after (flash_attention: 32, all in prefill);
               then prefill and each decode step timed alone, a profiled
               prefill and a profiled window of decode steps
-  10. dense parity  yi-6b at full width with 2 layers, weights from a CPU
+  11. dense parity  yi-6b at full width with 2 layers, weights from a CPU
               generator copied to the card: prefill (2 x 256) and 4
               decode steps on the card and on the CPU; the card's prefill
               again with the plain attention put in the kernel's place
@@ -87,9 +112,11 @@ Then one `{"kernels": [...]}` line, and last the device line
 `{"ok": true, "device": {...}}`. Measurements also go to
 results/chip_smoke.json.
 """
+import itertools
 import json
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1167,6 +1194,442 @@ def profile_steps(torch, eng, batches, tag):
             "by_kernel": by_kernel, "host_ops": ops}
 
 
+DP_RESUME = 10                 # steps before and after the resume's save
+DP_DISK = 4 << 30              # free bytes the phase needs (keep=2 at 2^27)
+
+
+class _ListSource:
+    """A `DataSource` over batches already made (what `write_file_corpus`
+    is given): `batch(i)` is the i-th of them."""
+
+    name = "zipf_sparse"
+
+    def __init__(self, batches):
+        self.batches = batches
+        self.batch_size = len(batches[0]["labels"])
+        self.num_batches = len(batches)
+
+    def batch(self, index):
+        return self.batches[index]
+
+
+def _stamped(batches, stamps):
+    """Yield `batches`, noting the time just before each hand-over and
+    just after fit_sgd asks for the next (its step has ended: it read the
+    metrics back), and once after the last: `_split` turns the stamps
+    into each step's time fetching its batch and time training on it."""
+    stamps.append(time.perf_counter())
+    for b in batches:
+        stamps.append(time.perf_counter())
+        yield b
+        stamps.append(time.perf_counter())
+
+
+def _split(stamps):
+    """(fetch seconds, train seconds) a step from `_stamped`'s stamps."""
+    fetch = [stamps[i + 1] - stamps[i] for i in range(0, len(stamps) - 1, 2)]
+    train = [stamps[i + 1] - stamps[i] for i in range(1, len(stamps) - 1, 2)]
+    return fetch, train
+
+
+class _Window:
+    """`n` steps of one continuing loader iterator each time it is
+    iterated (for `profile_steps`, which runs its window three times):
+    the prefetch thread runs on across the windows."""
+
+    def __init__(self, loader, n, windows=3):
+        self.it, self.n = iter(loader.batches(n * windows)), n
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        return itertools.islice(self.it, self.n)
+
+
+def _fed_steps(torch, eng, batches, n):
+    """fit_sgd over `batches` with the launch counters set to 0 just
+    before and read just after: (step seconds, total seconds, counts,
+    fetch seconds, train seconds); a step is its fetch and its train."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    stamps = []
+    hist = eng.fit_sgd(_stamped(batches, stamps))
+    counts = ops.launch_counts()
+    require(len(hist) == n, f"{len(hist)} steps, not {n}")
+    fetch, train = _split(stamps)
+    steps = [f + t for f, t in zip(fetch, train)]
+    return steps, stamps[-1] - stamps[0], counts, fetch, train
+
+
+def _feeds_loader(dev, source, prefetch):
+    loader = _loader(dev, source, prefetch)
+    return loader.batches(STEPS), loader
+
+
+def _loader(dev, source, prefetch=2):
+    from repro_torch.data import ShardedLoader
+
+    return ShardedLoader(source, device=dev, host_index=0, num_hosts=1,
+                         prefetch=prefetch)
+
+
+def _placement_cost(torch, dev, src, train, n=8):
+    """Host wall ms a batch, each call followed by a synchronize: reading
+    one from the file corpus, placing a host batch on the card as the
+    loader does (`put_batch`: pinned staging, a non_blocking copy), and,
+    for comparison, a plain pageable copy of its leaves; then the host
+    operations `put_batch` runs (CUDA runtime calls included), from a
+    trace, by self time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import put_batch
+
+    def wall(fn):
+        ts = []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        return statistics.median(ts) * 1e3
+
+    out = {"read_ms": wall(lambda i: src.batch(i)),
+           "put_batch_ms": wall(lambda i: put_batch(train[i], dev)),
+           "pageable_ms": wall(lambda i: {k: torch.as_tensor(v).to(dev)
+                                          for k, v in train[i].items()})}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            put_batch(train[i], dev)
+        torch.cuda.synchronize()
+    top = sorted(((e.key, e.self_cpu_time_total / n / 1e3, e.count / n)
+                  for e in prof.key_averages()), key=lambda r: -r[1])[:10]
+    out["put_batch_host_ops"] = top
+    log(f"[dataplane placement] a batch, host wall with a synchronize: "
+        f"read from the file corpus {out['read_ms']:.3f} ms, put_batch "
+        f"{out['put_batch_ms']:.3f} ms, a pageable copy "
+        f"{out['pageable_ms']:.3f} ms; put_batch's host operations by "
+        "self time a call: " + "; ".join(
+            f"{k} {ms:.3f} ms x{c:g}" for k, ms, c in top))
+    return out
+
+
+def _tree_bytes(path):
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*")
+               if f.is_file())
+
+
+def _ckpt_cost(torch, eng, directory):
+    """Times of save (blocking, first with the pinned buffers' allocation
+    and again), of save(block=False)'s return and of the wait, the device
+    time the snapshot puts on the stream (profiler), and of restore."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for key in ("save_block_first_s", "save_block_s"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step = eng.save(directory, keep=2, block=True)
+        out[key] = time.perf_counter() - t
+    out["bytes_written"] = _tree_bytes(pathlib.Path(directory)
+                                       / f"step_{step:010d}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.save(directory, keep=2, block=False)
+    out["save_async_return_s"] = time.perf_counter() - t
+    out["stream_busy_at_return"] = not torch.cuda.current_stream().query()
+    t = time.perf_counter()
+    eng.wait_saves()
+    out["wait_s"] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.save(directory, keep=2, block=False)
+        torch.cuda.synchronize()
+    copies = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            copies[evt.key] = copies.get(evt.key, 0.0) + us / 1e3
+    eng.wait_saves()
+    out["snapshot_device_ms"] = sum(copies.values())
+    out["snapshot_ops"] = copies
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.restore(directory)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t
+    return out
+
+
+def _resume(torch, dev, dist, hot, corpus, directory):
+    """Engine A: DP_RESUME loader-fed steps, save(block=False), and at
+    once DP_RESUME more; engine B: a new engine and loader restore A's
+    checkpoint and train DP_RESUME steps. B must end with A's bits, and
+    the file with A's table before its step DP_RESUME + 1."""
+    from repro_torch import DPMREngine
+    from repro_torch.data import get_source
+    from repro_torch.kernels import ops
+
+    cfg = full_width_config(dist)
+    src = get_source("file_sparse", directory=corpus)
+    a, la = DPMREngine(cfg, hot_ids=hot), _loader(dev, src)
+    ops.reset_launch_counts()
+    a.fit_sgd(la, steps=DP_RESUME)
+    before = a.state.cold.clone()
+    t = time.perf_counter()
+    step = a.save(directory, keep=2, block=False)
+    return_s = time.perf_counter() - t
+    a.fit_sgd(la, steps=DP_RESUME)           # updates the table in place
+    counts = ops.launch_counts()
+    a.wait_saves()
+    saved = torch.from_numpy(np.load(pathlib.Path(directory)
+                                     / f"step_{step:010d}" / "arr_0.npy"))
+    file_ok = _same_bits(torch, saved, before.cpu())
+    changed = not _same_bits(torch, a.state.cold, before)
+    del before
+    b, lb = DPMREngine(cfg, hot_ids=hot), _loader(dev, src)
+    b.restore(directory, loader=lb)
+    cursor = lb.cursor.to_dict()
+    b.fit_sgd(lb, steps=DP_RESUME)
+    same = {f: _same_bits(torch, getattr(a.state, f), getattr(b.state, f))
+            for f in a.state._fields}
+    log(f"[dataplane resume {dist}] A: {DP_RESUME} loader-fed steps, "
+        f"save(block=False) returned in {return_s * 1e3:.3f} ms, then "
+        f"{DP_RESUME} steps at once; the step-{step} file holds A's cold "
+        f"before step {step + 1} bit for bit={file_ok} (A's cold changed "
+        f"since={changed}); B restored (cursor {cursor}) and trained "
+        f"{DP_RESUME}: bit-identical to A {same}; launches in A {counts}")
+    require(file_ok and changed, f"{dist}: the async snapshot does not hold "
+            "the pre-step bits")
+    require(all(same.values()), f"{dist}: the resumed state differs {same}")
+    require(cursor == {"epoch": 0, "step": DP_RESUME},
+            f"{dist}: restored cursor {cursor}")
+    require(counts["sigmoid_grad"] == 2 * DP_RESUME
+            and (dist != "topk_reduce"
+                 or counts["select_pack"] >= 2 * DP_RESUME),
+            f"{dist}: launches {counts}")
+    shutil.rmtree(directory)
+    return {"bit_identical": same, "file_holds_pre_step_bits": file_ok,
+            "save_async_return_ms": return_s * 1e3, "launches": counts}
+
+
+def _auto_tables(cfg):
+    """The autotuner's ranking under the default WireBandwidth at P = 1,
+    the p8 phase's P = 8 in one pod, and (pod 2, data 4)."""
+    from repro_torch.api import autotune
+    from repro_torch.api.strategies import StrategyContext
+    from repro_torch.core import dpmr
+
+    out = {}
+    for tag, p, pods in (("P=1", 1, 1), ("P=8", 8, 1),
+                         ("pod 2 x data 4", 8, 2)):
+        ctx = StrategyContext(
+            num_shards=p, block_size=dpmr.padded_features(cfg, p) // p,
+            capacity=dpmr.capacity(cfg, BATCH, p), outer_shards=pods,
+            topk_frac=cfg.topk_frac)
+        ranked = autotune.score_strategies(ctx)
+        out[tag] = [{"name": r.name, "inner": r.wire.inner,
+                     "outer": r.wire.outer, "cost_s": r.cost_s,
+                     "lossy": r.lossy} for r in ranked]
+        log(f"[dataplane auto] {tag} (cap {ctx.capacity}), "
+            f"{autotune.WireBandwidth()} GB/s one way: " + "; ".join(
+                f"{r.name} {r.cost_s * 1e6:.3f} us ({r.wire.inner} + "
+                f"{r.wire.outer} B{', lossy' if r.lossy else ''})"
+                for r in ranked))
+    return out
+
+
+def phase_dataplane(torch, dev, train, hot):
+    """The data plane, checkpoints and `auto` at configuration 1's width
+    (the module note, phase 5)."""
+    import tempfile
+
+    from repro_torch import DPMREngine
+    from repro_torch.api import put_batch
+    from repro_torch.core import dpmr
+    from repro_torch.data import get_source, write_file_corpus
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build).free
+    log(f"[dataplane] {free / 2 ** 30:.1f} GiB free under {build}")
+    require(free >= DP_DISK, f"the phase needs {DP_DISK >> 30} GiB free")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="dataplane-", dir=build))
+    out = {}
+    try:
+        corpus = tmp / "corpus"
+        t = time.perf_counter()
+        write_file_corpus(str(corpus), _ListSource(train))
+        out["corpus_write_s"] = time.perf_counter() - t
+        out["corpus_bytes"] = _tree_bytes(corpus)
+        log(f"[dataplane] file corpus of the {len(train)} training batches "
+            f"({len(train) * BATCH} samples): {out['corpus_write_s']:.3f} s, "
+            f"{out['corpus_bytes']} bytes on disk")
+
+        cfg = full_width_config("a2a")
+        src = get_source("file_sparse", directory=str(corpus))
+        dev_train = [put_batch(b, dev) for b in train]
+        # resident batches; a file loader with and without prefetch; a
+        # prefetching loader over batches in memory; and, without a
+        # loader, just before each step: each host batch placed
+        # (put_batch), each resident batch cloned on the card, each batch
+        # copied from host memory pinned once, and each resident batch
+        # after the host has copied a batch's bytes (2 MiB) in its memory
+        pinned = [{k: torch.as_tensor(v).pin_memory() for k, v in b.items()}
+                  for b in train]
+        scratch = [{k: np.empty_like(v) for k, v in b.items()} for b in train]
+
+        def copied_then(i, b):
+            for k, v in train[i].items():
+                np.copyto(scratch[i][k], v)
+            return b
+
+        feeds = {
+            "resident": lambda: (dev_train, None),
+            "file": lambda: _feeds_loader(dev, src, 2),
+            "file_sync": lambda: _feeds_loader(dev, src, 0),
+            "memory": lambda: _feeds_loader(dev, _ListSource(train), 2),
+            "put_each": lambda: ((put_batch(b, dev) for b in train), None),
+            "clone_each": lambda: ((type(b)({k: v.clone() for k, v in
+                                             b.items()}, b.global_size)
+                                    for b in dev_train), None),
+            "pinned_each": lambda: ((put_batch({k: v.to(dev, non_blocking=True)
+                                                for k, v in b.items()}, dev)
+                                     for b in pinned), None),
+            "memcpy_each": lambda: ((copied_then(i, b)
+                                     for i, b in enumerate(dev_train)), None)}
+        runs = {k: [] for k in feeds}
+        ref = None
+        # in turns, each way of feeding twice: A B C ... C B A
+        for kind in [*feeds, *reversed(feeds)]:
+            eng = DPMREngine(cfg, hot_ids=hot)
+            batches, loader = feeds[kind]()
+            steps, total, counts, fetch, train_s = _fed_steps(
+                torch, eng, batches, STEPS)
+            if ref is None:
+                ref = eng
+            same = {f: _same_bits(torch, getattr(ref.state, f),
+                                  getattr(eng.state, f))
+                    for f in ref.state._fields}
+            runs[kind].append({
+                "step_ms_median": statistics.median(steps) * 1e3,
+                "fetch_ms_median": statistics.median(fetch) * 1e3,
+                "train_ms_median": statistics.median(train_s) * 1e3,
+                "samples_per_s": STEPS * BATCH / total,
+                "wait_ms_median": statistics.median(loader.wait_s) * 1e3
+                if loader is not None and loader.wait_s else None,
+                "wait_ms_max": max(loader.wait_s) * 1e3
+                if loader is not None and loader.wait_s else None,
+                "launches": counts, "bit_identical": same})
+            log(f"[dataplane] a2a {STEPS} steps fed {kind}: "
+                + json.dumps(runs[kind][-1]))
+            require(all(same.values()),
+                    f"the state fed {kind} differs from resident: {same}")
+            require(counts["sigmoid_grad"] == STEPS
+                    and counts["segment_sum_sorted"] == 3 * STEPS,
+                    f"a2a fed {kind} launched {counts} in {STEPS} steps")
+            if eng is not ref:
+                del eng
+        del pinned, scratch
+        out["feeds"] = runs
+        out["resident_profile"] = profile_steps(
+            torch, ref, dev_train[:8], "dataplane resident a2a")
+        del ref, dev_train
+        torch.cuda.empty_cache()
+        fed = DPMREngine(cfg, hot_ids=hot)
+        loader = _loader(dev, src)
+        fed.fit_sgd(loader, steps=STEPS)
+        out["loader_profile"] = profile_steps(
+            torch, fed, _Window(loader, 8), "dataplane loader a2a")
+        out["read_stats"] = src.read_stats
+        more = host_ops_diff(out["loader_profile"]["host_ops"],
+                             out["resident_profile"]["host_ops"])
+        slower = sorted(
+            ((k, d["ms"] - out["resident_profile"]["host_ops"].get(
+                k, {"ms": 0.0})["ms"]) for k, d in
+             out["loader_profile"]["host_ops"].items()),
+            key=lambda kv: -kv[1])[:8]
+        log(f"[dataplane] host operations the loader-fed step runs beyond "
+            f"the resident one, a step: {json.dumps(more)}; the most host "
+            "time added, by name: " + "; ".join(
+                f"{k} {ms:+.3f} ms" for k, ms in slower))
+        for kind, rs in runs.items():
+            log(f"[dataplane] fed {kind}: step medians "
+                f"{[round(r['step_ms_median'], 3) for r in rs]} ms (fetch "
+                f"{[round(r['fetch_ms_median'], 3) for r in rs]}, train "
+                f"{[round(r['train_ms_median'], 3) for r in rs]}), "
+                f"samples/s {[round(r['samples_per_s']) for r in rs]}"
+                + ("" if rs[0]["wait_ms_median"] is None else
+                   f", the consumer's wait a batch median "
+                   f"{[round(r['wait_ms_median'], 3) for r in rs]} ms, max "
+                   f"{[round(r['wait_ms_max'], 3) for r in rs]} ms"))
+
+        out["placement"] = _placement_cost(torch, dev, src, train)
+
+        synth = get_source("zipf_sparse", batch_size=BATCH, num_batches=64,
+                           start=2000, num_features=1 << LOG2_F,
+                           features_per_sample=K, signal_features=4096)
+        t = time.perf_counter()
+        synth.batch(0)
+        synth_s = time.perf_counter() - t
+        zl = _loader(dev, synth)
+        z_steps, z_total, _, _, _ = _fed_steps(torch, fed, zl.batches(4), 4)
+        out["synthesising"] = {
+            "step_ms_median": statistics.median(z_steps) * 1e3,
+            "samples_per_s": 4 * BATCH / z_total,
+            "host_synthesis_ms_a_batch": synth_s * 1e3,
+            "wait_ms_median": statistics.median(zl.wait_s) * 1e3}
+        log(f"[dataplane] a2a 4 steps fed by ShardedLoader(zipf_sparse, "
+            f"prefetch=2), synthesising on the fly: step median "
+            f"{out['synthesising']['step_ms_median']:.3f} ms; the host "
+            f"makes a batch in {synth_s * 1e3:.1f} ms")
+
+        out["checkpoint"] = ckpt = _ckpt_cost(torch, fed, str(tmp / "ck"))
+        log(f"[dataplane checkpoint] 2^{LOG2_F} a2a state, "
+            f"{ckpt['bytes_written']} bytes: save(block=True) "
+            f"{ckpt['save_block_first_s']:.3f} s the first time (pinned "
+            f"buffers allocated), {ckpt['save_block_s']:.3f} s again; "
+            f"save(block=False) returns in "
+            f"{ckpt['save_async_return_s'] * 1e3:.3f} ms (stream still busy "
+            f"then={ckpt['stream_busy_at_return']}), wait() "
+            f"{ckpt['wait_s']:.3f} s; the snapshot's device time "
+            f"{ckpt['snapshot_device_ms']:.3f} ms "
+            f"({json.dumps(ckpt['snapshot_ops'])}); restore "
+            f"{ckpt['restore_s']:.3f} s")
+        require(ckpt["bytes_written"] > 2 * 4 * (1 << LOG2_F),
+                "the checkpoint lacks the tables")
+        del fed, loader, zl
+        shutil.rmtree(tmp / "ck")
+        torch.cuda.empty_cache()
+
+        out["resume"] = {}
+        for dist in ("a2a", "topk_reduce"):
+            out["resume"][dist] = _resume(torch, dev, dist, hot,
+                                          str(corpus), str(tmp / dist))
+            torch.cuda.empty_cache()
+
+        auto_cfg = full_width_config("auto")
+        card = DPMREngine(auto_cfg, hot_ids=hot).step_fns(BATCH).strategy
+        cpu = DPMREngine(auto_cfg, device="cpu").step_fns(BATCH).strategy
+        log(f"[dataplane auto] distribution='auto' at 2^{LOG2_F}, P = 1: "
+            f"{card} on the card, {cpu} on the CPU "
+            f"(resolve_distribution: {dpmr.resolve_distribution(auto_cfg)})")
+        require(card == cpu == dpmr.resolve_distribution(auto_cfg),
+                "auto resolves differently on the card")
+        out["auto"] = {"card": card, "cpu": cpu,
+                       "ranked": _auto_tables(auto_cfg)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 MR_STEPS = (("a2a", 8), ("topk_reduce", 8), ("overlap_a2a", 4))
 
 
@@ -2096,6 +2559,7 @@ def main():
     results = phase_kernels(torch, dev, train[0], hot)
     engine = phase_engine(torch, dev, results, train, test, hot)
     engine["batch_gen_s"] = gen_s
+    dataplane = phase_dataplane(torch, dev, train, hot)
     multirank = phase_multirank(torch, dev, train, hot)
     p8 = phase_p8(torch, dev, hot, results)
     parity = phase_parity(torch, dev)
@@ -2124,7 +2588,8 @@ def main():
          "kernel_resources": resources, "kernels": kernels,
          "owner_accumulate": results["owner_accumulate"],
          "reduces": results["reduces"],
-         "engine": engine, "multirank": multirank, "p8": p8,
+         "engine": engine, "dataplane": dataplane,
+         "multirank": multirank, "p8": p8,
          "parity": parity, "serve": served,
          "dense_parity": dense_parity}, indent=1))
     log(smi)

@@ -5,10 +5,15 @@ for module and never imports it. What it covers today:
 
 - the sparse face's trainer, on one rank or on P ranks of a
   `torch.distributed` mesh (`launch.mesh`, `launch.train --sparse`):
-  `DPMREngine.fit_sgd`, `fit`, `predict` and `evaluate` on the `a2a`,
-  `allgather`, `psum_scatter`, `compressed_reduce`, `topk_reduce`,
-  `overlap_a2a`, `hier_a2a`, `hier_a2a+topk` and `hier_a2a+int8`
-  strategies;
+  `DPMREngine.fit_sgd`, `fit`, `predict`, `evaluate`, `save` and
+  `restore` on the `a2a`, `allgather`, `psum_scatter`,
+  `compressed_reduce`, `topk_reduce`, `overlap_a2a`, `hier_a2a`,
+  `hier_a2a+topk` and `hier_a2a+int8` strategies, or `auto` (the
+  wire-cost autotuner, `api.autotune`);
+- its data plane (`data`): the `zipf_sparse`, `lm_markov` and
+  `file_sparse` sources, host shard ownership, and the prefetching,
+  resumable `ShardedLoader`; checkpoints (`ckpt.checkpointer`) with the
+  elastic re-pad (`runtime.elastic`);
 - the dense face's serving path: prefill and greedy decode of the dense
   and vlm models (yi-6b, granite-8b, granite-34b, llama3-405b,
   chameleon-34b; `models.registry`, `train.serve.greedy_decode`,

@@ -818,9 +818,9 @@ def get_strategy(name: str) -> DistributionStrategy:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(
-            f"distribution strategy {name!r} is not registered in "
-            f"repro_torch ({sorted(_REGISTRY)}); 'auto', the wire-cost "
-            "autotuner (api/autotune.py), is ROADMAP queue A") from None
+            f"unknown distribution strategy {name!r}; "
+            f"registered: {sorted(_REGISTRY)} (\"auto\" is resolved by "
+            "core.dpmr.resolve_distribution, not registered)") from None
 
 
 def list_strategies() -> list[str]:

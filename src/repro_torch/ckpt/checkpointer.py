@@ -1,0 +1,259 @@
+"""Checkpointing: atomic, versioned, async-capable, elastic on restore; the
+counterpart of `repro.ckpt.checkpointer`, in the same on-disk layout, so
+either package reads the other's checkpoints:
+
+    <dir>/step_<N>/            N as %010d
+        manifest.json          structure, shapes, dtypes, step, extras
+        arr_<i>.npy            one file per leaf, the FULL logical array,
+                               in `DPMRState` field order
+
+Guarantees:
+  - atomicity, twice over: leaves land in `step_<N>.tmp`, which is
+    os.replace'd into place only when complete, and inside it the
+    manifest is written to a temporary name, fsync'd and os.replace'd
+    last, so a complete `manifest.json` defines a complete checkpoint.
+    `all_steps` counts only step directories whose manifest parses: a
+    crash mid-write makes that step invisible, and restore falls back to
+    the previous good one.
+  - keep-N retention.
+  - elastic restore: leaves are full logical arrays, so a state saved at
+    P ranks restores at any other P (`restore_host` hands back the raw
+    arrays; `runtime/elastic.py` re-pads the DPMR table).
+  - async: the port updates the state's tensors IN PLACE (no donation),
+    so the snapshot must be taken before the next step writes them.
+    `save` enqueues the device-to-host copies on the CURRENT stream into
+    pinned host buffers that the checkpointer allocates once per leaf
+    shape and keeps, and records an event after them; stream order then
+    runs the next step's in-place updates after the copies, and `save`
+    returns without waiting for the device. The writer (inline with
+    `block=True`, on a thread with `block=False`) waits on the event, then
+    serializes, fsyncs and renames. `wait()` joins it (and raises what it
+    raised); every save joins the previous one first, so the buffers are
+    free to reuse.
+
+Multi-rank: every rank calls `save` with the mesh (the gather of the
+sharded leaves, every rank's block in rank order, is a collective), and
+only rank 0 touches the filesystem; the directory must be shared. A
+blocking save ends with a barrier, so no rank returns before the step is
+on disk. Restore reads the full arrays on every rank and cuts its blocks
+(`convert.state_from_numpy`).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.convert import SHARDED, state_from_numpy
+from repro_torch.runtime import multiprocess
+
+
+def _named_leaves(state) -> list[tuple[str, object]]:
+    """(name, leaf) in order: a NamedTuple's fields by name, any other
+    sequence by index (its leaves replicated)."""
+    names = getattr(state, "_fields", None)
+    if names is None:
+        return [(str(i), leaf) for i, leaf in enumerate(state)]
+    return list(zip(names, state, strict=True))
+
+
+def _path(name: str, named: bool) -> str:
+    # the path strings the reference's manifest holds for a NamedTuple's
+    # fields, so both packages write the same manifest for one state
+    return f"(GetAttrKey(name='{name}'),)" if named else f"[{name}]"
+
+
+class Checkpointer:
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+        self._buffers: dict[int, torch.Tensor] = {}
+
+    # -- save ---------------------------------------------------------------
+
+    def _snapshot(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Copy `t` into leaf i's kept host buffer, `non_blocking` on the
+        current stream when `t` is on the card."""
+        buf = self._buffers.get(i)
+        pinned = t.is_cuda
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype \
+                or buf.is_pinned() != pinned:
+            buf = self._buffers[i] = torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=pinned)
+        buf.copy_(t, non_blocking=pinned)
+        return buf
+
+    def save(self, step: int, state, extra: dict | None = None,
+             block: bool = True, mesh=None):
+        """Snapshot `state` (a `DPMRState`, or a sequence of tensors or
+        arrays) at `step`. With a `mesh` of P > 1 ranks the `SHARDED`
+        fields of a `DPMRState` are this rank's blocks and are gathered
+        whole (every rank must call this).
+
+        The device->host copies are enqueued HERE, on the current stream:
+        that is the snapshot point, and later in-place updates of the
+        state run after them. Everything after (the wait on the copies,
+        np.save, the manifest's fsync, the atomic renames, GC) runs inline
+        (`block=True`) or on a thread."""
+        self.wait()
+        named = getattr(state, "_fields", None) is not None
+        leaves = []
+        for name, leaf in _named_leaves(state):
+            if not torch.is_tensor(leaf):
+                leaf = torch.as_tensor(np.asarray(leaf))
+            if named and name in SHARDED and mesh is not None \
+                    and int(mesh.size()) > 1:
+                whole = leaf.new_empty((int(mesh.size()) * leaf.shape[0],
+                                        *leaf.shape[1:]))
+                dist.all_gather_into_tensor(whole, leaf.contiguous())
+                leaf = whole
+            leaves.append((name, leaf.detach()))
+        manifest = {
+            "step": int(step),
+            "num_leaves": len(leaves),
+            "paths": [_path(name, named) for name, _ in leaves],
+            "shapes": [list(t.shape) for _, t in leaves],
+            "dtypes": [str(torch.empty(0, dtype=t.dtype).numpy().dtype)
+                       for _, t in leaves],
+            "extra": extra or {},
+            "time": time.time(),
+        }
+        if not multiprocess.is_primary():
+            if block:
+                multiprocess.barrier()
+            return      # the gather above was the collective part
+        host = [self._snapshot(i, t) for i, (_, t) in enumerate(leaves)]
+        copied = None
+        cuda = [t.device for _, t in leaves if t.is_cuda]
+        if cuda:
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(cuda[0]))
+
+        def _write():
+            if copied is not None:
+                copied.synchronize()
+            final = os.path.join(self.dir, f"step_{step:010d}")
+            tmp = final + ".tmp"
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            for i, buf in enumerate(host):
+                np.save(os.path.join(tmp, f"arr_{i}.npy"), buf.numpy())
+            # manifest last, via its own temp + replace: its presence (and
+            # parseability) is the completeness marker readers trust
+            mtmp = os.path.join(tmp, "manifest.json.tmp")
+            with open(mtmp, "w") as f:
+                json.dump(manifest, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(mtmp, os.path.join(tmp, "manifest.json"))
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            self._gc()
+
+        if block:
+            _write()
+            multiprocess.barrier()
+            return
+
+        def _run():
+            try:
+                _write()
+            except BaseException as e:  # raised again by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=_run, daemon=True,
+                                        name="checkpoint-writer")
+        self._thread.start()
+
+    def wait(self):
+        """Join the in-flight async write, raising what it raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _gc(self):
+        steps = self.all_steps()
+        for s in steps[: -self.keep] if self.keep > 0 else []:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:010d}"),
+                          ignore_errors=True)
+
+    # -- restore --------------------------------------------------------------
+
+    def _manifest_path(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:010d}", "manifest.json")
+
+    def _manifest_ok(self, step: int) -> bool:
+        try:
+            with open(self._manifest_path(step)) as f:
+                json.load(f)
+            return True
+        except (OSError, ValueError):
+            return False
+
+    def all_steps(self) -> list[int]:
+        """Steps with a COMPLETE checkpoint (parseable manifest). A dir
+        whose manifest is missing or truncated (a crashed writer, a
+        partial copy) is skipped, so `restore()` falls back to the newest
+        good step instead of crashing on the bad one."""
+        out = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                try:
+                    step = int(name[5:])
+                except ValueError:
+                    continue
+                if self._manifest_ok(step):
+                    out.append(step)
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore_host(self, step: int | None = None
+                     ) -> tuple[list[np.ndarray], dict]:
+        """Raw host-side leaves + manifest, no placement: the elastic
+        path. When the saved geometry no longer matches the live state
+        (`shapes` differ), re-pad these with `runtime/elastic.py` instead
+        of cutting them blind."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        with open(self._manifest_path(step)) as f:
+            manifest = json.load(f)
+        d = os.path.join(self.dir, f"step_{step:010d}")
+        arrs = [np.load(os.path.join(d, f"arr_{i}.npy"))
+                for i in range(manifest["num_leaves"])]
+        return arrs, manifest
+
+    def restore(self, like, step: int | None = None, mesh=None):
+        """Restore into the structure of `like` (a `DPMRState` on its
+        device): this rank's blocks of the saved full arrays on `mesh`.
+        Returns (state, manifest)."""
+        arrs, manifest = self.restore_host(step)
+        if len(arrs) != len(like):
+            raise ValueError(f"checkpoint has {len(arrs)} leaves, the "
+                             f"state {len(like)}")
+        return state_from_numpy(arrs, like[0].device, mesh), manifest
+
+
+def manifest_extra(directory: str, step: int | None = None) -> dict:
+    ck = Checkpointer(directory)
+    step = ck.latest_step() if step is None else step
+    with open(os.path.join(directory, f"step_{step:010d}",
+                           "manifest.json")) as f:
+        return json.load(f)["extra"]

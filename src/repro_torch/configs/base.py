@@ -34,8 +34,10 @@ class DPMRConfig:
     distribution: str = "a2a"        # name in the repro_torch.api strategy
     #                                  registry (a2a | allgather |
     #                                  psum_scatter | compressed_reduce |
-    #                                  topk_reduce | user-registered); the
-    #                                  multi-rank ones are ROADMAP queue A
+    #                                  topk_reduce | overlap_a2a |
+    #                                  hier_a2a | user-registered), or
+    #                                  "auto": the wire-cost autotuner
+    #                                  (api/autotune.py) picks one
     topk_frac: float = 0.25          # topk_reduce: fraction of the per-
     #                                  destination capacity slots whose
     #                                  largest-|g| gradients go on the wire

@@ -24,16 +24,16 @@ from collections.abc import Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dpmr import DPMRState, num_shards
 from repro_torch.launch.mesh import mesh_rank
 from repro_torch.models import transformer
+from repro_torch.runtime.multiprocess import host_value
 
 _DTYPES = (np.float32, np.float32, np.int32, np.float32, np.float32,
            np.int32, np.float32)
-_SHARDED = ("cold", "cold_acc", "strat")   # cut in P blocks over the mesh
+SHARDED = ("cold", "cold_acc", "strat")   # cut in P blocks over the mesh
 
 
 def state_from_numpy(leaves: Sequence, device, mesh=None) -> DPMRState:
@@ -47,7 +47,7 @@ def state_from_numpy(leaves: Sequence, device, mesh=None) -> DPMRState:
     for name, leaf, dt in zip(DPMRState._fields, leaves, _DTYPES,
                               strict=True):
         leaf = np.asarray(leaf, dtype=dt)
-        if name in _SHARDED:
+        if name in SHARDED:
             if leaf.shape[0] % p:
                 raise ValueError(f"{name}: {leaf.shape[0]} rows do not "
                                  f"split over {p} ranks")
@@ -61,16 +61,8 @@ def state_to_numpy(state: DPMRState, mesh=None) -> tuple[np.ndarray, ...]:
     """The 7 leaves of `state` as host numpy arrays (copies) in the
     reference's global layout, in field order; on a mesh, an all_gather of
     every rank's blocks (every rank must call it)."""
-    out = []
-    for name, t in zip(DPMRState._fields, state, strict=True):
-        if name in _SHARDED and mesh is not None:
-            whole = t.new_empty((num_shards(mesh) * t.shape[0],))
-            dist.all_gather_into_tensor(whole, t.contiguous())
-            t = whole
-        # a copy: a CPU tensor's .numpy() would share its memory, and the
-        # next step updates the state in place
-        out.append(t.detach().to("cpu", copy=True).numpy())
-    return tuple(out)
+    return tuple(host_value(t, mesh if name in SHARDED else None)
+                 for name, t in zip(DPMRState._fields, state, strict=True))
 
 
 def _pairs(model: transformer.Transformer):

@@ -113,13 +113,36 @@ def make_strategy_context(cfg: DPMRConfig, mesh=None, cap: int = 0):
         groups=groups)
 
 
+_AUTOTUNE_BATCH_LOCAL = 128
+#   nominal per-rank batch behind cfg.distribution == "auto": the
+#   autotuner prices capacity at this fixed size so one (cfg, mesh) pair
+#   resolves to ONE strategy; a batch-size-dependent choice could flip
+#   between StepFns and invalidate the persistent carry's shape
+
+
+def resolve_distribution(cfg: DPMRConfig, mesh=None) -> str:
+    """The concrete strategy name for this (cfg, mesh): cfg.distribution
+    itself, or, when it is the sentinel "auto", the cheapest registered
+    strategy under the analytic per-tier wire-cost model
+    (`api.autotune.choose_strategy`) on this mesh's geometry."""
+    if cfg.distribution != "auto":
+        return cfg.distribution
+    # late import: repro_torch.api imports this module
+    from repro_torch.api import autotune
+
+    p = num_shards(mesh)
+    ctx = make_strategy_context(
+        cfg, mesh, cap=capacity(cfg, _AUTOTUNE_BATCH_LOCAL, p))
+    return autotune.choose_strategy(ctx)
+
+
 def strategy_carry_len(cfg: DPMRConfig, mesh=None) -> int:
-    """Per-rank length L of the strategy's persistent carry (1 when the
-    strategy is stateless: the placeholder keeps the state's layout the
-    same for every strategy)."""
+    """Per-rank length L of the resolved strategy's persistent carry (1
+    when the strategy is stateless: the placeholder keeps the state's
+    layout the same for every strategy)."""
     from repro_torch.api.strategies import get_strategy
 
-    carry = get_strategy(cfg.distribution).init_carry(
+    carry = get_strategy(resolve_distribution(cfg, mesh)).init_carry(
         make_strategy_context(cfg, mesh), device="meta")
     return 1 if carry is None else int(carry.shape[0])
 
@@ -264,7 +287,8 @@ class StepFns(NamedTuple):
     capacity: int            # per-(src,dst) a2a slots
     block_size: int          # feature-table rows per rank
     num_shards: int          # P
-    strategy: str = "a2a"    # distribution-strategy name
+    strategy: str = "a2a"    # RESOLVED distribution-strategy name (a
+    #                          registry entry, never "auto")
     ctx: object = None       # StrategyContext of these steps
 
 
@@ -287,7 +311,8 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *, mesh=None,
     if batch_size % p:
         raise ValueError(f"batch {batch_size} is not a multiple of P={p}")
     cap = capacity(cfg, batch_size // p, p, cap_factor)
-    strategy = get_strategy(cfg.distribution)
+    dist_name = resolve_distribution(cfg, mesh)
+    strategy = get_strategy(dist_name)
     ctx = make_strategy_context(cfg, mesh, cap)
     stateful = strategy.init_carry(ctx, device="meta") is not None
     sched = make_schedule(cfg)
@@ -340,4 +365,4 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *, mesh=None,
     return StepFns(train_step=train_step, grad_step=grad_step,
                    apply_update=apply_update, predict=predict,
                    capacity=cap, block_size=f // p, num_shards=p,
-                   strategy=cfg.distribution, ctx=ctx)
+                   strategy=dist_name, ctx=ctx)

@@ -55,3 +55,14 @@ def split_hot(ids_flat: torch.Tensor, hot_ids: torch.Tensor):
     hot_slot = torch.where(is_hot, pos_c, -1)
     cold_ids = torch.where(is_hot | (ids_flat < 0), -1, ids_flat)
     return hot_slot, is_hot, cold_ids
+
+
+def load_imbalance(ids_flat: torch.Tensor, num_shards: int,
+                   block_size: int) -> torch.Tensor:
+    """max/mean owner load for this rank's cold ids (skew diagnostic);
+    padding ids (< 0) count for no owner."""
+    owner = torch.where(ids_flat >= 0, ids_flat // block_size, num_shards)
+    counts = torch.bincount(owner.to(torch.int64).reshape(-1),
+                            minlength=num_shards + 1)[:num_shards]
+    mean = torch.clamp(torch.mean(counts.to(torch.float32)), min=1e-6)
+    return torch.max(counts).to(torch.float32) / mean

@@ -4,16 +4,31 @@
     PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \\
         -m repro_torch.launch.train --sparse --device cpu     # 8 gloo ranks
     PYTHONPATH=src torchrun --standalone --nproc-per-node 1 \\
-        -m repro_torch.launch.train --sparse                  # the card
+        -m repro_torch.launch.train --sparse --ckpt /tmp/sck  # the card
+    # kill it mid-run and rerun the same command: it resumes from --ckpt
 
-Every rank reads the same `zipf_sparse` stream (`--data-seed`) of GLOBAL
-batches of `--batch` samples and trains its rows with `DPMREngine.fit_sgd`
-on a `pods x data x model` mesh; rank 0 prints one JSON line: the
-strategy, the losses, the two-tier wire bytes a rank receives per step,
-and the md5 of the final global table. It runs on the card (NCCL) unless
-`--device cpu` (gloo). The reference's checkpointing (`--ckpt`), file
-corpora (`--data-dir`) and emulated hosts (`--hosts`) are ROADMAP A7; its
-dense mode is ROADMAP A12.
+The data plane is the reference's (`--data-dir`, `--hosts`, `--host-id`,
+`--shuffle`, `--prefetch`, `--sparse-batches`): a `zipf_sparse` stream
+(`--data-seed`), or with `--data-dir` a `file_sparse` corpus under
+chunk-aligned ownership, behind a `ShardedLoader`.
+  * Under torchrun with W ranks, rank r IS data-plane host r of W, as
+    process h is host h in the reference's real multi-process run: its
+    loader reads only host r's batches of `--batch` rows, and the engine
+    takes them as rank r's rows of a global batch of W x `--batch` rows,
+    in host order (`runtime.multiprocess.global_batch_placement`).
+  * `--hosts H --host-id -1` is the all-hosts emulation: every rank reads
+    the concatenated H x `--batch`-row global batch
+    (`emulate_all_hosts`) and cuts its own rows; at H = W it trains on
+    the same rows under the same mesh as the run above, bit for bit.
+  * In one process, `--hosts H --host-id h` emulates host h alone.
+Training runs `DPMREngine.fit_sgd` on a `pods x data x model` mesh and,
+with `--ckpt`, saves every `--save-every` steps (`--async-ckpt` keeps only
+the snapshot on the step path) and resumes from the newest checkpoint,
+reassigning shard ownership if the host count changed. Rank 0 prints one
+JSON line: the strategy, the losses, the two-tier wire bytes a rank
+receives a step, a float64 loss over a fixed raw batch, and the md5 of
+the final global table. It runs on the card (NCCL) unless `--device cpu`
+(gloo). The dense mode is ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -21,12 +36,20 @@ import argparse
 import hashlib
 import json
 
+import numpy as np
 import torch.distributed as dist
 
-from repro_torch.api import DPMREngine, get_source, get_strategy
+from repro_torch.api import (
+    DPMREngine,
+    ShardedLoader,
+    get_source,
+    get_strategy,
+)
+from repro_torch.ckpt.checkpointer import Checkpointer
 from repro_torch.configs.base import DPMRConfig
 from repro_torch.convert import state_to_numpy
 from repro_torch.launch.mesh import init_from_env, make_host_mesh
+from repro_torch.runtime import multiprocess as mp
 
 
 def sparse_loop(args) -> dict:
@@ -39,31 +62,91 @@ def sparse_loop(args) -> dict:
         dist.destroy_process_group()
 
 
+def make_loader(args, mesh, device) -> tuple[ShardedLoader, object, int]:
+    """This rank's loader, the raw source the final eval reads, and the
+    global batch size a step trains on."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    hosts, host_id = args.hosts, args.host_id
+    if args.data_dir:
+        source = get_source("file_sparse", directory=args.data_dir)
+    else:
+        source = get_source("zipf_sparse", batch_size=args.batch,
+                            num_batches=args.sparse_batches,
+                            num_features=args.features,
+                            features_per_sample=32, seed=args.data_seed)
+    eval_source = source
+    placement = "sharded"
+    if host_id == -1:
+        # the parity baseline: every host's stream, concatenated
+        source = mp.emulate_all_hosts(source, hosts)
+        hosts, host_id = 1, 0
+    elif world > 1:
+        if hosts not in (1, world):
+            raise SystemExit(
+                f"under torchrun rank r is host r of the {world} ranks: "
+                f"drop --hosts {hosts}/--host-id (or pass --host-id -1 "
+                "for the all-hosts emulation)")
+        hosts, host_id = world, rank
+        placement = mp.global_batch_placement(device, world)
+    loader = ShardedLoader(source, mesh, device=device, placement=placement,
+                           host_index=host_id, num_hosts=hosts,
+                           prefetch=args.prefetch, shuffle=args.shuffle)
+    rows = int(source.batch_size)
+    if placement == "sharded":      # a global batch, conformed to the mesh
+        return loader, eval_source, rows - rows % loader.batch_divisor
+    return loader, eval_source, rows * world    # this rank's rows of it
+
+
 def train_sparse(args, device) -> dict:
-    """Train `args.steps` global batches on this rank of the default
-    process group; returns the run's summary (the same on every rank but
-    for `rank`)."""
+    """Train up to `args.steps` steps on this rank of the default process
+    group; returns the run's summary (the same on every rank but for
+    `rank`)."""
     world = dist.get_world_size()
     data = args.mesh_data or world // (args.mesh_model * args.pods)
     mesh = make_host_mesh(data, args.mesh_model, args.pods)
-    # the reference launcher's defaults: --lr 1e-2, --sparse-batches 64
     cfg = DPMRConfig(num_features=args.features,
                      max_features_per_sample=32,
                      distribution=args.strategy, optimizer="adagrad",
-                     learning_rate=1e-2)
-    source = get_source("zipf_sparse", batch_size=args.batch,
-                        num_batches=64, num_features=args.features,
-                        features_per_sample=32, seed=args.data_seed)
+                     learning_rate=args.lr)
+    loader, eval_source, global_rows = make_loader(args, mesh, device)
     engine = DPMREngine(cfg, device=device, mesh=mesh)
-    history = engine.fit_sgd(source, steps=args.steps)
-    wire = get_strategy(args.strategy).bytes_per_device(engine.fns.ctx)
+    if args.ckpt and Checkpointer(args.ckpt).latest_step() is not None:
+        # reassign rather than refuse when the host count changed between
+        # runs: the loop resumes at the epoch boundary under the new
+        # ownership
+        engine.restore(args.ckpt, loader=loader, on_host_change="reassign")
+    # checkpoint every --save-every steps, so a killed run resumes
+    # mid-stream; the final save is always blocking (it flushes any
+    # write in flight)
+    history = []
+    while engine.host_step() < args.steps:
+        chunk = min(args.save_every, args.steps - engine.host_step())
+        history += engine.fit_sgd(loader, steps=chunk)
+        if args.ckpt:
+            engine.save(args.ckpt, keep=args.keep,
+                        block=not args.async_ckpt)
+    if args.ckpt and args.async_ckpt:
+        engine.save(args.ckpt, keep=args.keep)
+    wire = get_strategy(args.strategy).bytes_per_device(
+        engine.step_fns(global_rows).ctx)
+    # a deterministic parity probe: the loss recomputed on the host in
+    # float64 over a fixed raw batch, equal exactly when the tables are
+    batch = eval_source.batch(0)
+    probs = engine.predict({"ids": batch["ids"], "vals": batch["vals"]}
+                           ).astype(np.float64)
+    y = np.asarray(batch["labels"], np.float64)
+    eps = 1e-9
+    final_eval = float(-np.mean(y * np.log(probs + eps)
+                                + (1 - y) * np.log(1 - probs + eps)))
     cold = state_to_numpy(engine.state, mesh)[0]
     return {"strategy": args.strategy,
             "losses": [h["loss"] for h in history],
-            "last_step": int(engine.state.step),
+            "last_step": engine.host_step(),
+            "final_eval_loss": final_eval,
             "wire_bytes": {"inner": wire.inner, "outer": wire.outer},
             "cold_md5": hashlib.md5(cold.tobytes()).hexdigest(),
             "num_processes": world, "rank": dist.get_rank(),
+            "hosts": loader.num_hosts,
             "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape, strict=True))}
 
 
@@ -77,10 +160,34 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--features", type=int, default=1 << 14,
                     help="hashed feature-space size")
     ap.add_argument("--batch", type=int, default=256,
-                    help="GLOBAL batch (a multiple of the rank count)")
+                    help="rows a data-plane host reads a step (under "
+                         "torchrun the global batch is ranks x --batch)")
     ap.add_argument("--steps", type=int, default=20,
-                    help="fit_sgd steps (at most the corpus's 64 batches)")
+                    help="train until the state's step reaches this")
+    ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--sparse-batches", type=int, default=64,
+                    help="zipf_sparse corpus size in batches (one epoch)")
     ap.add_argument("--data-seed", type=int, default=0)
+    ap.add_argument("--data-dir", default="",
+                    help="read a file_sparse corpus (written by "
+                         "write_file_corpus) from this directory under "
+                         "chunk-aligned shard ownership")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="data-plane hosts (under torchrun: the ranks)")
+    ap.add_argument("--host-id", type=int, default=0,
+                    help="which host of --hosts this one-process run "
+                         "emulates; -1 emulates ALL hosts (the "
+                         "concatenated global batch: the parity baseline)")
+    ap.add_argument("--shuffle", action="store_true",
+                    help="per-epoch loader shuffling (seeded, resume-exact)")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="loader prefetch depth (0 = synchronous input)")
+    ap.add_argument("--ckpt", default="",
+                    help="checkpoint directory (shared by the ranks); "
+                         "resumes from its newest step")
+    ap.add_argument("--keep", type=int, default=3)
+    ap.add_argument("--save-every", type=int, default=20)
+    ap.add_argument("--async-ckpt", action="store_true")
     ap.add_argument("--mesh-data", type=int, default=0,
                     help="data dim of the mesh (0 = the ranks that "
                          "--mesh-model and --pods leave)")
@@ -90,10 +197,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device type (default: the card, NCCL; "
                          "'cpu' for gloo)")
-    ap.add_argument("--ckpt", default="", help="not ported: ROADMAP A7")
-    ap.add_argument("--data-dir", default="", help="not ported: ROADMAP A7")
-    ap.add_argument("--hosts", type=int, default=1,
-                    help="not ported: ROADMAP A7")
     return ap
 
 
@@ -103,11 +206,11 @@ def main(argv=None):
     if not args.sparse:
         ap.error("the dense trainer is not ported yet: ROADMAP A12 (pass "
                  "--sparse)")
-    for flag, given in (("--ckpt", args.ckpt), ("--data-dir", args.data_dir),
-                        ("--hosts", args.hosts != 1)):
-        if given:
-            ap.error(f"{flag} (checkpointing and the sharded data plane) is "
-                     "not ported yet: ROADMAP A7")
+    if args.hosts < 1 or not -1 <= args.host_id < args.hosts:
+        ap.error(f"--host-id {args.host_id} is not a host of --hosts "
+                 f"{args.hosts} (or -1 for all of them)")
+    if args.save_every < 1:
+        ap.error("--save-every must be >= 1")
     out = sparse_loop(args)
     if out["rank"] == 0:
         print(json.dumps(out), flush=True)

@@ -690,3 +690,64 @@ def test_flash_attention_kernel_refuses(cuda):
     q, k, v = _attn_inputs(cuda, 1, 32, 32, 4, 2, 32, seed=3)
     with pytest.raises(ValueError, match="head dim 32"):
         ops.flash_attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# the data plane and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+
+def _small_engine(cuda, strategy):
+    from repro_torch import DPMRConfig, DPMREngine, get_source
+    from repro_torch.data import ShardedLoader
+
+    cfg = DPMRConfig(num_features=1 << 16, max_features_per_sample=16,
+                     max_hot=16, learning_rate=2.0, optimizer="adagrad",
+                     distribution=strategy, topk_frac=0.05)
+    src = get_source("zipf_sparse", batch_size=512, num_batches=6,
+                     num_features=1 << 16, features_per_sample=16)
+    return DPMREngine(cfg, device=cuda), src, ShardedLoader
+
+
+@pytest.mark.gpu
+def test_prefetch_onto_the_card_hands_over_the_same_batches(cuda):
+    """Batches copied on the loader's side stream equal those placed on
+    the consumer's stream, and train to the same bits."""
+    eng, src, loader_cls = _small_engine(cuda, "a2a")
+    other, _, _ = _small_engine(cuda, "a2a")
+    fed = loader_cls(src, device=cuda, host_index=0, num_hosts=1,
+                     prefetch=2)
+    plain = loader_cls(src, device=cuda, host_index=0, num_hosts=1,
+                       prefetch=0)
+    for a, b in zip(fed.take(8), plain.take(8), strict=True):
+        assert a["ids"].is_cuda and a.global_size == 512
+        for k in ("ids", "vals", "labels"):
+            assert torch.equal(a[k], b[k])
+    fed.seek({"epoch": 0, "step": 0})
+    plain.seek({"epoch": 0, "step": 0})
+    eng.fit_sgd(fed, steps=8)
+    other.fit_sgd(plain, steps=8)
+    for a, b in zip(eng.state, other.state, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["a2a", "topk_reduce"])
+def test_async_save_holds_the_pre_step_bits_on_the_card(cuda, strategy,
+                                                        tmp_path):
+    """save(block=False) enqueues its copies on the stream and returns;
+    train_step straight after it updates the table in place, and the
+    file holds the bits of the save."""
+    from repro_torch.ckpt.checkpointer import Checkpointer
+
+    eng, src, _ = _small_engine(cuda, strategy)
+    eng.fit_sgd(src, steps=3)
+    before = [t.clone() for t in eng.state]
+    eng.save(str(tmp_path), block=False)
+    eng.train_step(src.batch(3))
+    eng.wait_saves()
+    arrs, manifest = Checkpointer(str(tmp_path)).restore_host()
+    assert manifest["step"] == 3
+    for a, b in zip(arrs, before, strict=True):
+        assert a.tobytes() == b.cpu().numpy().tobytes()
+    assert not torch.equal(eng.state.cold, before[0])

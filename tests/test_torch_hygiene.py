@@ -51,16 +51,31 @@ def test_engine_without_device_needs_a_card():
 @pytest.mark.parametrize("dist", ["overlap_a2a", "hier_a2a", "auto",
                                   "no_such_strategy"])
 def test_other_distributions_raise(dist):
-    """`auto` (the autotuner, not ported) and an unknown name raise;
-    overlap_a2a and hier_a2a, which differ from a2a only across ranks or
-    tiers, build and train bit for bit as a2a at P = 1."""
+    """An unknown name raises; `auto` resolves, through the autotuner, to
+    the strategy the reference resolves it to at P = 1; overlap_a2a and
+    hier_a2a, which differ from a2a only across ranks or tiers, build and
+    train bit for bit as a2a at P = 1."""
     from repro_torch import DPMRConfig, DPMREngine, get_source
+    from repro_torch.core import dpmr
 
     kw = dict(num_features=1 << 10, max_features_per_sample=8, max_hot=8,
               learning_rate=1.0)
-    if dist in ("auto", "no_such_strategy"):
-        with pytest.raises(KeyError, match=f"{dist}.*ROADMAP queue A"):
+    if dist == "no_such_strategy":
+        with pytest.raises(KeyError, match=f"unknown distribution strategy "
+                                           f".*{dist}.*; registered"):
             DPMREngine(DPMRConfig(distribution=dist, **kw), device="cpu")
+        return
+    if dist == "auto":
+        from repro.configs.base import DPMRConfig as JaxConfig
+        from repro.core import dpmr as jax_dpmr
+        from repro.launch.mesh import make_host_mesh
+
+        want = jax_dpmr.resolve_distribution(JaxConfig(distribution=dist,
+                                                       **kw),
+                                             make_host_mesh(1, 1))
+        eng = DPMREngine(DPMRConfig(distribution=dist, **kw), device="cpu")
+        assert dpmr.resolve_distribution(eng.cfg) == want
+        assert eng.step_fns(32).strategy == want
         return
     src = get_source("zipf_sparse", batch_size=32, num_batches=2,
                      num_features=1 << 10, features_per_sample=8)

@@ -55,9 +55,11 @@ REPEAT_RUNS = {
     # inner group over two dims
     "hier_a2a-3d": ("hier_a2a", 0.25, "pods3d", "hier_a2a"),
 }
+# launch.train: each of 4 hosts reads 64 rows a step, a global batch of 256
 LAUNCH_ARGS = ["--sparse", "--device", "cpu", "--strategy", "a2a",
-               "--features", "4096", "--batch", "256", "--steps", "3",
+               "--features", "4096", "--batch", "64", "--steps", "3",
                "--data-seed", "3"]
+ALL_HOSTS = ["--hosts", "4", "--host-id", "-1"]
 
 
 def _kw(dist, frac):
@@ -138,6 +140,9 @@ def _jax_reference(path):
                 routing = sparse.route_build(cold, P, ctx.block_size, cap)
             out[f"{run}/req_ids/{r}"] = np.asarray(routing.req_ids)
             out[f"{run}/overflow/{r}"] = np.asarray(routing.overflow)
+    for mesh_name, mesh in meshes.items():
+        out[f"auto/{mesh_name}"] = np.asarray(dpmr.resolve_distribution(
+            DPMRConfig(**_kw("auto", 0.05)), mesh))
     np.savez(path, **out)
 
 
@@ -257,9 +262,25 @@ def _rank_main(rank, store, ref_path, out_dir):
             out.update(_port_run(run, dist_name, frac, meshes[mesh_name],
                                  init, batches))
         out.update(_put_batch_records(meshes["flat"], batches[0]))
+        out.update(_auto_records(meshes))
         np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
+
+
+def _auto_records(meshes):
+    """What `auto` resolves to on each mesh, and on an engine's steps."""
+    from repro_torch import DPMRConfig, DPMREngine
+    from repro_torch.core import dpmr
+
+    out = {}
+    for name in ("flat", "pods"):
+        cfg = DPMRConfig(**_kw("auto", 0.05))
+        out[f"auto/{name}"] = np.asarray(dpmr.resolve_distribution(
+            cfg, meshes[name]))
+        eng = DPMREngine(cfg, device="cpu", mesh=meshes[name])
+        out[f"auto/{name}/steps"] = np.asarray(eng.step_fns(B).strategy)
+    return out
 
 
 def _put_batch_records(mesh, batch):
@@ -423,6 +444,18 @@ def test_lossy_runs_bank_a_residual(results):
         assert np.abs(ranks[0][f"{run}/sgd/strat"]).sum() > 0, run
 
 
+@pytest.mark.parametrize("mesh", ["flat", "pods"])
+def test_auto_resolves_as_the_reference(mesh, results):
+    """`distribution="auto"` at P = 8 and on (pod 2, data 4) resolves to
+    the reference's choice (under each package's default bandwidths), on
+    every rank and in the engine's steps."""
+    ref, ranks = results
+    want = str(ref[f"auto/{mesh}"])
+    for port in ranks:
+        assert str(port[f"auto/{mesh}"]) == want
+        assert str(port[f"auto/{mesh}/steps"]) == want
+
+
 def test_put_batch_takes_this_ranks_rows(results):
     _, ranks = results
     ids = np.asarray(_batches()[0]["ids"])
@@ -481,33 +514,94 @@ def test_wire_bytes_on_the_wire_match_the_model(run, results):
     assert ranks[0][f"{run}/wire"].sum() > 0
 
 
-def test_launch_train_under_torchrun(tmp_path):
+def _torchrun(argv, cwd):
+    env = _env()
+    env["OMP_NUM_THREADS"] = "1"
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train", *argv],
+        env=env, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _json_line(proc, timeout=300):
+    out, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, err[-4000:]
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    assert len(lines) == 1, out       # rank 0 alone prints
+    return json.loads(lines[0])
+
+
+@pytest.fixture(scope="module")
+def launched(tmp_path_factory):
+    """`launch.train` at 4 ranks: under torchrun, each rank reading its
+    own host's rows and, again, each reading the all-hosts global batch;
+    the reference CLI's all-hosts emulation on 4 emulated devices; and
+    the first run again through mp.spawn. All but the last concurrently."""
+    tmp = tmp_path_factory.mktemp("launch")
+    own = _torchrun(LAUNCH_ARGS + ["--ckpt", str(tmp / "own")], tmp)
+    emulated = _torchrun(LAUNCH_ARGS + ALL_HOSTS, tmp)
+    env = _env()
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    reference = subprocess.Popen(
+        [sys.executable, "-m", "repro.launch.train", "--json",
+         "--mesh-data", "4", "--ckpt", str(tmp / "reference"),
+         *[a for a in LAUNCH_ARGS if a not in ("--device", "cpu")],
+         *ALL_HOSTS], env=env, cwd=tmp, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    _spawn(_launch_rank, (str(tmp / "store"), str(tmp)), 4)
+    out = {"own": _json_line(own), "emulated": _json_line(emulated),
+           "reference": _json_line(reference),
+           "spawned": json.loads((tmp / "launch0.json").read_text())}
+    return tmp, out
+
+
+def test_launch_train_under_torchrun(launched):
     """`launch.train --sparse` under torchrun (4 gloo ranks) prints the
     losses and table of the same run made through mp.spawn."""
-    _spawn(_launch_rank, (str(tmp_path / "store"), str(tmp_path)), 4)
-    spawned = json.loads((tmp_path / "launch0.json").read_text())
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
-         *LAUNCH_ARGS], env=_env(), cwd=tmp_path, capture_output=True,
-        text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
-    assert len(lines) == 1, proc.stdout       # rank 0 alone prints
-    out = json.loads(lines[0])
-    assert out["losses"] == spawned["losses"] and len(out["losses"]) == 3
-    assert out["cold_md5"] == spawned["cold_md5"]
-    assert out["mesh"] == {"data": 4, "model": 1}
-    assert out["wire_bytes"] == spawned["wire_bytes"]
+    _, out = launched
+    got, spawned = out["own"], out["spawned"]
+    assert got["losses"] == spawned["losses"] and len(got["losses"]) == 3
+    assert got["cold_md5"] == spawned["cold_md5"]
+    assert got["mesh"] == {"data": 4, "model": 1}
+    assert got["wire_bytes"] == spawned["wire_bytes"]
+    assert got["hosts"] == 4 and got["num_processes"] == 4
 
+
+def test_launch_train_ranks_are_hosts_as_in_the_reference(launched):
+    """F2: rank r reads only host r's rows and they form rows
+    [r*B, (r+1)*B) of the global batch, as process h is host h in the
+    reference. Against the reference CLI's all-hosts emulation (4
+    devices): losses and the float64 probe loss within 1e-5, the saved
+    tables within atol 1e-5. Against 4 ranks that each read the all-hosts
+    global batch and cut their rows: bit for bit."""
+    tmp, out = launched
+    own, emulated, ref = out["own"], out["emulated"], out["reference"]
+    np.testing.assert_allclose(own["losses"], ref["losses"], atol=ATOL)
+    assert own["final_eval_loss"] == pytest.approx(ref["final_eval_loss"],
+                                                   abs=ATOL)
+    assert own["wire_bytes"] == ref["wire_bytes"]
+    assert own["last_step"] == ref["last_step"] == 3
+    table = np.load(tmp / "own" / "step_0000000003" / "arr_0.npy")
+    want = np.load(tmp / "reference" / "step_0000000003" / "arr_0.npy")
+    assert table.shape == want.shape == (4096,)
+    _close(table, want, "launch table")
+    assert np.abs(table).sum() > 0
+    assert own["losses"] == emulated["losses"]
+    assert own["cold_md5"] == emulated["cold_md5"]
+    assert own["final_eval_loss"] == emulated["final_eval_loss"]
+    assert emulated["hosts"] == 1
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["--sparse", "--ckpt", "/tmp/ck"], "ROADMAP A7"),
-    (["--sparse", "--data-dir", "/tmp/d"], "ROADMAP A7"),
-    (["--sparse", "--hosts", "2"], "ROADMAP A7"),
+    (["--sparse", "--hosts", "2", "--host-id", "2"], "not a host of"),
+    (["--sparse", "--host-id", "-2"], "not a host of"),
+    (["--sparse", "--save-every", "0"], "--save-every must be"),
     (["--strategy", "a2a"], "ROADMAP A12")])
 def test_launch_train_refuses_what_is_not_ported(argv, names, capsys):
+    """The dense mode is not ported; host flags that name no host, and a
+    save interval below 1, are refused before any group starts."""
     from repro_torch.launch import train
 
     with pytest.raises(SystemExit):
