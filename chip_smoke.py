@@ -90,7 +90,30 @@ Phases, in order; any failure exits non-zero:
   8. parity   both strategies at 2^20 features on the card and on the CPU
               from the same batches; run-to-run bit reproducibility of
               the card's gradient step and of topk_reduce's carry
-  9. attention  yi-6b at full width (32 layers, bf16) built on the card
+  9. sparse_serve  configuration 8: a2a trained 20 steps on the resident
+              batches at 2^27, saved under build/ and restored with
+              DPMRServeEngine.from_checkpoint (seconds); traffic A, the
+              12,288 held-out rows cut into requests of 1-64 rows (numpy
+              seed 0), submitted at once by 8 client threads, served with
+              max_batch 64 and then 1024 (max_wait_ms 2, the reference's
+              hot-cache defaults), the launch counters set to 0 just
+              before and read just after each (the forward launches none
+              of the repo's kernels); p50/p99 latency, requests/s,
+              samples/s, batch_mean, padding_frac, hit rate, refreshes;
+              every answer bit-identical to predict_padded of its request
+              alone, the counters adding up; a refresh's ms on traffic
+              A's window and the dense select_hot(feature_counts()) route
+              beside it, the two selections equal; traffic B, 256
+              head-only requests of 1-4 rows drawn from the mirror, every
+              one a hit, the host µs a hit; stop() draining 8 queued
+              requests and submit after it raising; predict_padded alone
+              at buckets 64, 256, 1024, 4096 (CUDA events) with a profiled
+              window at 1024, and the row arithmetic (halving tree, f64
+              sigmoid) against torch.sum; then traffic A through an NCCL
+              group of one rank (file store), bit-identical to no group,
+              with the host µs of the front's broadcasts a flush. Its
+              files under build/ are deleted at the end
+  10. attention  yi-6b at full width (32 layers, bf16) built on the card
               from a torch.Generator seeded 0; `flash_attention` against
               its plain version on layer 0's q, k, v of a (1, 4096)
               prefill, and on adversarial shapes (D = 64, MHA, MQA with
@@ -99,12 +122,12 @@ Phases, in order; any failure exits non-zero:
               with its plain version and scaled_dot_product_attention as
               the yardstick; the timed call's own output held to the
               plain version, and 3 calls bit-identical
-  10. serve   greedy_decode of yi-6b, batch 8 x prompt 4096 (numpy seed
+  11. serve   greedy_decode of yi-6b, batch 8 x prompt 4096 (numpy seed
               0), 32 steps, with the launch counters set to 0 just before
               and read just after (flash_attention: 32, all in prefill);
               then prefill and each decode step timed alone, a profiled
               prefill and a profiled window of decode steps
-  11. dense parity  yi-6b at full width with 2 layers, weights from a CPU
+  12. dense parity  yi-6b at full width with 2 layers, weights from a CPU
               generator copied to the card: prefill (2 x 256) and 4
               decode steps on the card and on the CPU; the card's prefill
               again with the plain attention put in the kernel's place
@@ -2164,6 +2187,405 @@ def phase_parity(torch, dev):
     return out
 
 
+SERVE_BUCKETS = (64, 256, 1024, 4096)
+SERVE_CLIENTS = 8
+SERVE_HEAD_REQUESTS = 256
+
+
+def serve_requests(test, seed=SEED):
+    """Traffic A: the held-out rows in order, cut into requests of 1 to 64
+    rows (uniform, numpy `seed`): a ranking service scoring a page's
+    candidates."""
+    ids = np.concatenate([b["ids"] for b in test])
+    vals = np.concatenate([b["vals"] for b in test])
+    rng = np.random.default_rng(seed)
+    reqs, lo = [], 0
+    while lo < len(ids):
+        n = int(rng.integers(1, 65))
+        reqs.append((ids[lo:lo + n], vals[lo:lo + n]))
+        lo += n
+    return reqs
+
+
+def head_requests(hot_ids, seed=SEED):
+    """Traffic B: requests of 1 to 4 rows whose ids are drawn from the
+    mirror's head set (1 to K a row, the rest -1 padding)."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(SERVE_HEAD_REQUESTS):
+        rows = int(rng.integers(1, 5))
+        ids = np.full((rows, K), -1, np.int32)
+        vals = np.zeros((rows, K), np.float32)
+        for r in range(rows):
+            nnz = int(rng.integers(1, K + 1))
+            ids[r, :nnz] = rng.choice(hot_ids, size=nnz)
+            vals[r, :nnz] = rng.normal(size=nnz)
+        reqs.append((ids, vals))
+    return reqs
+
+
+def serve_traffic(srv, reqs):
+    """Submit `reqs` from SERVE_CLIENTS threads (contiguous slices, all at
+    once), wait for every answer, stop the server (a drain). Returns the
+    answers in request order, the wall seconds to the last answer, and
+    the rows the hot cache answered."""
+    import threading
+
+    results = [None] * len(reqs)
+    hit_rows, lock = [], threading.Lock()
+    if srv.cache is not None:
+        lookup = srv.cache.lookup
+
+        def counted(ids, vals):
+            probs = lookup(ids, vals)
+            if probs is not None:
+                with lock:
+                    hit_rows.append(len(ids))
+            return probs
+
+        srv.cache.lookup = counted
+
+    def client(lo, hi):
+        for i in range(lo, hi):
+            results[i] = srv.submit(*reqs[i])
+
+    per = -(-len(reqs) // SERVE_CLIENTS)
+    threads = [threading.Thread(target=client,
+                                args=(c * per, min(len(reqs), (c + 1) * per)))
+               for c in range(SERVE_CLIENTS)]
+    srv.metrics.reset_clock()
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    require(not any(th.is_alive() for th in threads), "a client hung")
+    got = [np.asarray(f.result(timeout=600)) for f in results]
+    wall = time.perf_counter() - t
+    srv.stop()
+    return got, wall, sum(hit_rows)
+
+
+def _check_served(tag, eng, srv, reqs, got, hit_rows):
+    """Every answer bit-identical to predict_padded of its request alone,
+    and the counters adding up; returns the serving's numbers."""
+    same = all(np.array_equal(g, eng.predict_padded({"ids": i, "vals": v}))
+               for (i, v), g in zip(reqs, got))
+    m = srv.metrics_snapshot()
+    rows = sum(len(r[0]) for r in reqs)
+    flushes = m.get("flushes", 0)
+    by_reason = {r: m.get(f"flush_{r}", 0)
+                 for r in ("full", "deadline", "drain")}
+    hits, misses = m.get("cache_hits", 0), m.get("cache_misses", 0)
+    log(f"[sparse_serve {tag}] {len(reqs)} requests, {rows} rows: every "
+        f"answer bit-identical to predict_padded alone={same}; flushes "
+        f"{flushes} {by_reason}, {sum(srv.metrics._flush_rows)} rows "
+        f"flushed + {hit_rows} answered by the cache; hits {hits}, misses "
+        f"{misses}, refreshes {m.get('cache_refreshes', 0)} (stale "
+        f"{m.get('cache_stale_refreshes', 0)}); step fns "
+        f"{m['compiled_step_fns']}")
+    require(same, f"{tag}: a served answer differs from predict_padded")
+    require(m["requests"] == len(reqs) and m["samples"] == rows,
+            f"{tag}: requests/samples {m['requests']}/{m['samples']}")
+    require(sum(by_reason.values()) == flushes
+            == len(srv.metrics._flush_rows),
+            f"{tag}: flushes by reason {by_reason} against {flushes}")
+    require(srv.cache is None or hits + misses == len(reqs),
+            f"{tag}: {hits} hits + {misses} misses")
+    require(sum(srv.metrics._flush_rows) + hit_rows == rows,
+            f"{tag}: rows flushed and answered do not add up to {rows}")
+    return m
+
+
+def _serving_numbers(tag, m, wall, rows):
+    out = {k: m.get(k) for k in (
+        "latency_p50_ms", "latency_p99_ms", "qps", "batch_mean",
+        "padded_mean", "padding_frac", "hot_hit_rate", "flushes",
+        "flush_full", "flush_deadline", "flush_drain", "cache_hits",
+        "cache_misses", "cache_refreshes", "cache_stale_refreshes",
+        "compiled_step_fns")}
+    out["wall_s"] = wall
+    out["samples_per_s"] = rows / wall
+    log(f"[sparse_serve {tag}] wall {wall * 1e3:.3f} ms: latency p50 "
+        f"{m.get('latency_p50_ms', float('nan')):.3f} ms, p99 "
+        f"{m.get('latency_p99_ms', float('nan')):.3f} ms; "
+        f"{m.get('qps', 0):.1f} requests/s, {rows / wall:.0f} samples/s; "
+        f"batch_mean {m.get('batch_mean', 0):.2f}, padded_mean "
+        f"{m.get('padded_mean', 0):.2f}, padding_frac "
+        f"{m.get('padding_frac', 0):.4f}; hot_hit_rate "
+        f"{m.get('hot_hit_rate', 0):.4f}")
+    return out
+
+
+def _refresh_costs(torch, dev, cache, cfg):
+    """One refresh's ms at 2^27 (the sparse selection from distinct ids and
+    the mirror's gather, 5 times), and the dense select_hot(
+    feature_counts()) route on the same window, whose ids must equal the
+    sparse selection's."""
+    from repro_torch.core import dpmr, hot_sharding
+    from repro_torch.serve.hot_cache import select_hot_ids
+
+    f = dpmr.padded_features(cfg)
+    thr, max_hot = cache.config.threshold, cache.config.max_hot
+    refresh_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cache.refresh()             # ends in the copies of ids and values
+        refresh_ms.append((time.perf_counter() - t) * 1e3)
+    flat = np.concatenate(list(cache._window))
+    window = torch.from_numpy(flat).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dense_ms = []
+    for _ in range(2):
+        t = time.perf_counter()
+        dense = hot_sharding.select_hot(hot_sharding.feature_counts(window, f),
+                                        thr, max_hot)
+        torch.cuda.synchronize()
+        dense_ms.append((time.perf_counter() - t) * 1e3)
+    dense_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    sparse_ms = []
+    for _ in range(2):
+        t = time.perf_counter()
+        sparse = select_hot_ids(window, f, thr, max_hot)
+        torch.cuda.synchronize()
+        sparse_ms.append((time.perf_counter() - t) * 1e3)
+    sparse_peak = torch.cuda.max_memory_allocated() - base
+    same = bool(torch.equal(sparse, dense))
+    mirrored = int((sparse != hot_sharding.INT_MAX).sum())
+    log(f"[sparse_serve refresh] window of {len(cache._window)} requests, "
+        f"{flat.size} id slots at 2^{LOG2_F}: refresh (selection + gather "
+        f"+ copies) {[round(x, 3) for x in refresh_ms]} ms; selection "
+        f"alone from distinct ids {[round(x, 3) for x in sparse_ms]} ms "
+        f"(+{sparse_peak / 2 ** 20:.1f} MiB at peak) against the dense "
+        f"select_hot(feature_counts()) route {[round(x, 3) for x in dense_ms]}"
+        f" ms (+{dense_peak / 2 ** 20:.1f} MiB); {mirrored} ids selected; "
+        f"selections equal={same}")
+    require(same, "the sparse selection differs from select_hot("
+            "feature_counts()) at 2^27")
+    return {"refresh_ms": refresh_ms, "select_sparse_ms": sparse_ms,
+            "select_dense_ms": dense_ms, "sparse_peak_bytes": sparse_peak,
+            "dense_peak_bytes": dense_peak, "window_id_slots": int(flat.size),
+            "selected": mirrored}
+
+
+def _predict_by_bucket(torch, eng, test):
+    """predict_padded alone at each bucket, by CUDA events (the call ends
+    in the copy of its answers to the host); at 1024 also a profiled
+    window; and the row arithmetic against a torch.sum row sum."""
+    from repro_torch.core import dpmr
+
+    out = {}
+    for b in SERVE_BUCKETS:
+        batch = {"ids": test[0]["ids"][:b], "vals": test[0]["vals"][:b]}
+        out[f"ms_{b}"] = time_ms(torch, lambda: eng.predict_padded(batch))
+        log(f"[sparse_serve predict] bucket {b}: predict_padded "
+            f"{out[f'ms_{b}']:.4f} ms a call (median of 50, CUDA events)")
+    batch = {"ids": test[0]["ids"][:1024], "vals": test[0]["vals"][:1024]}
+    out["profile_1024"] = profile_window(
+        torch, lambda: eng.predict_padded(batch), 20,
+        "sparse_serve predict_padded 1024")
+    gen = torch.Generator(device=eng.device).manual_seed(SEED)
+    vals = torch.randn((1024, K), generator=gen, device=eng.device)
+    theta = torch.randn((1024, K), generator=gen, device=eng.device)
+    tree = kernel_and_call_ms(torch, lambda: dpmr.row_probs(vals, theta), [])
+    plain = kernel_and_call_ms(torch, lambda: torch.sigmoid(
+        torch.sum(vals * theta, dim=-1)), [])
+    out["row_probs"] = {"device_ms": tree[0], "call_ms": tree[1],
+                        "sum_device_ms": plain[0], "sum_call_ms": plain[1]}
+    log(f"[sparse_serve predict] row arithmetic at (1024, {K}): halving "
+        f"tree + f64 sigmoid {tree[0]:.5f} ms device, {tree[1]:.5f} ms a "
+        f"call; torch.sum + f32 sigmoid {plain[0]:.5f} ms device, "
+        f"{plain[1]:.5f} ms a call")
+    return out
+
+
+def _grouped_serving(torch, dev, cfg, state, reqs, want):
+    """The same server through an NCCL group of one rank (a file store):
+    the broadcasts of the front, the mirror's gather on the flusher, and
+    its answers bit-identical to the serving with no group (`want`)."""
+    import torch.distributed as dist
+
+    from repro_torch import DPMREngine
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import (BatchingConfig, DPMRServeEngine,
+                                   HotCacheConfig)
+
+    store = ROOT / "results" / "nccl_serve_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{store}", rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        eng = DPMREngine(cfg, device=dev, mesh=make_host_mesh(1),
+                         state=state)
+        srv = DPMRServeEngine(eng, batching=BatchingConfig(),
+                              hot_cache=HotCacheConfig(), start=False)
+        calls = []
+        command = srv._command
+
+        def timed(cmd, *args, **kw):
+            t = time.perf_counter()
+            out = command(cmd, *args, **kw)
+            calls.append((cmd, time.perf_counter() - t))
+            return out
+
+        srv._command = timed
+        srv.start()
+        got, wall, hit_rows = serve_traffic(srv, reqs)
+        m = _check_served("nccl", eng, srv, reqs, got, hit_rows)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    us = {name: [t * 1e6 for c, t in calls if c == code]
+          for name, code in (("predict", 1), ("mirror", 2), ("stop", 3))}
+    log(f"[sparse_serve nccl] group of 1 rank: answers bit-identical to no "
+        f"group={same}; wall {wall * 1e3:.3f} ms; host µs of the front's "
+        f"broadcasts a flush: median "
+        f"{statistics.median(us['predict']):.1f}, mean "
+        f"{statistics.mean(us['predict']):.1f} over {len(us['predict'])} "
+        f"flushes; a mirror command {[round(x, 1) for x in us['mirror']]}; "
+        f"stop {[round(x, 1) for x in us['stop']]}")
+    require(same, "the NCCL group's answers differ from no group's")
+    require(len(us["predict"]) == m.get("flushes", 0) and len(us["stop"]) == 1,
+            "the front did not broadcast once a flush and once at stop")
+    return {**_serving_numbers("nccl", m, wall, sum(len(r[0]) for r in reqs)),
+            "broadcast_us": us}
+
+
+def phase_sparse_serve(torch, dev, train, test, hot):
+    """Sparse serving at configuration 1's width (the module note, phase 9):
+    configuration 8."""
+    import tempfile
+
+    from repro_torch import DPMREngine
+    from repro_torch.api import put_batch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (BatchingConfig, DPMRServeEngine,
+                                   HotCacheConfig)
+
+    cfg = full_width_config("a2a")
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="serve-", dir=build))
+    out = {}
+    try:
+        eng = DPMREngine(cfg, device=dev, hot_ids=hot)
+        eng.fit_sgd([put_batch(b, dev) for b in train])
+        t = time.perf_counter()
+        eng.save(str(tmp), block=True)
+        out["save_s"] = time.perf_counter() - t
+        del eng
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        srv = DPMRServeEngine.from_checkpoint(cfg, str(tmp), device=dev,
+                                              start=False)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t
+        eng = srv.engine
+        out["checkpoint_bytes"] = _tree_bytes(tmp)
+        log(f"[sparse_serve] a2a trained {STEPS} steps at 2^{LOG2_F}, saved "
+            f"in {out['save_s']:.3f} s ({out['checkpoint_bytes']} bytes), "
+            f"restored into serving in {out['restore_s']:.3f} s at step "
+            f"{eng.host_step()}")
+        require(eng.host_step() == STEPS, "restored at the wrong step")
+        for b in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024):
+            eng.predict_padded({k: test[0][k][:b] for k in ("ids", "vals")})
+        reqs = serve_requests(test)
+        rows = sum(len(r[0]) for r in reqs)
+        log(f"[sparse_serve] traffic A: {len(reqs)} requests of 1-64 rows "
+            f"({rows} rows) from {SERVE_CLIENTS} client threads")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        answers = None
+        for tag, max_batch in (("A64", 64), ("A1024", 1024)):
+            s = DPMRServeEngine(eng, batching=BatchingConfig(
+                max_batch=max_batch, max_wait_ms=2.0),
+                hot_cache=HotCacheConfig())
+            ops.reset_launch_counts()
+            got, wall, hit_rows = serve_traffic(s, reqs)
+            counts = ops.launch_counts()
+            m = _check_served(tag, eng, s, reqs, got, hit_rows)
+            out[tag] = {**_serving_numbers(tag, m, wall, rows),
+                        "launches": counts}
+            log(f"[sparse_serve {tag}] kernel launches while serving: "
+                f"{counts}")
+            require(not any(counts.values()), "serving launched a kernel of "
+                    "the repo: its forward reaches none")
+            if answers is None:
+                answers = got
+        out["peak_serving_bytes"] = torch.cuda.max_memory_allocated()
+
+        head = DPMRServeEngine(eng, hot_cache=HotCacheConfig(), start=False)
+        for ids, _ in reqs:             # traffic A's window (< 512 requests)
+            head.cache.observe(ids)
+        out["refresh"] = _refresh_costs(torch, dev, head.cache, cfg)
+        head.cache.refresh()
+        head_ids = head.cache.hot_ids
+        require(head_ids.size > 0, "traffic A's window selects no head id")
+        hreqs = head_requests(head_ids)
+        head.start()
+        got, wall, hit_rows = serve_traffic(head, hreqs)
+        m = _check_served("B", eng, head, hreqs, got, hit_rows)
+        require(m.get("cache_hits", 0) == len(hreqs)
+                and m.get("flushes", 0) == 0,
+                "a head-only request missed the fresh mirror")
+        lat = np.asarray(head.metrics._latencies) * 1e6
+        head.cache.refresh()
+        alone = []
+        for ids, vals in hreqs[:200]:   # fresh for 256 lookups
+            t = time.perf_counter()
+            hit = head.cache.lookup(ids, vals)
+            alone.append((time.perf_counter() - t) * 1e6)
+            require(hit is not None, "a head-only lookup missed")
+        out["B"] = {**_serving_numbers("B", m, wall,
+                                       sum(len(r[0]) for r in hreqs)),
+                    "head_ids": int(head_ids.size),
+                    "hit_us_p50": float(np.percentile(lat, 50)),
+                    "hit_us_alone_p50": statistics.median(alone)}
+        log(f"[sparse_serve B] {head_ids.size} head ids; host µs a hit: "
+            f"p50 {out['B']['hit_us_p50']:.1f} submitted by "
+            f"{SERVE_CLIENTS} threads, {statistics.median(alone):.1f} "
+            f"looked up alone (median of 200)")
+
+        drain = DPMRServeEngine(eng, batching=BatchingConfig(
+            max_batch=1 << 20, max_wait_ms=3.6e6), hot_cache=None)
+        futs = [drain.submit(*r) for r in reqs[:8]]
+        drain.stop()
+        done = all(f.done() for f in futs)
+        same = done and all(np.array_equal(
+            f.result(), eng.predict_padded({"ids": i, "vals": v}))
+            for f, (i, v) in zip(futs, reqs))
+        try:
+            drain.submit(*reqs[0])
+            refused = False
+        except RuntimeError:
+            refused = True
+        log(f"[sparse_serve drain] stop() answered the 8 queued requests="
+            f"{same} ({drain.metrics_snapshot().get('flush_drain', 0)} "
+            f"drain flush); submit after stop raises={refused}")
+        require(same and refused
+                and drain.metrics_snapshot().get("flush_drain", 0) == 1,
+                "stop() did not drain, or submit after it did not raise")
+
+        out["predict"] = _predict_by_bucket(torch, eng, test)
+        out["grouped"] = _grouped_serving(torch, dev, cfg, eng.state, reqs,
+                                          answers)
+        log(f"[sparse_serve] peak device memory while serving traffic A "
+            f"{out['peak_serving_bytes'] / 2 ** 30:.3f} GiB")
+        del srv, eng, head, drain
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 def yi_model(torch, dev, num_layers=None, generator=None):
     """yi-6b at full width (bf16 matrices, f32 norm scales), optionally cut
     to `num_layers`, with weights from `generator` (default: one on `dev`
@@ -2563,6 +2985,7 @@ def main():
     multirank = phase_multirank(torch, dev, train, hot)
     p8 = phase_p8(torch, dev, hot, results)
     parity = phase_parity(torch, dev)
+    sparse_serve = phase_sparse_serve(torch, dev, train, test, hot)
     del train, test
     torch.cuda.empty_cache()
 
@@ -2590,7 +3013,7 @@ def main():
          "reduces": results["reduces"],
          "engine": engine, "dataplane": dataplane,
          "multirank": multirank, "p8": p8,
-         "parity": parity, "serve": served,
+         "parity": parity, "sparse_serve": sparse_serve, "serve": served,
          "dense_parity": dense_parity}, indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -14,6 +14,9 @@ for module and never imports it. What it covers today:
   `file_sparse` sources, host shard ownership, and the prefetching,
   resumable `ShardedLoader`; checkpoints (`ckpt.checkpointer`) with the
   elastic re-pad (`runtime.elastic`);
+- sparse serving (`serve`): `DPMRServeEngine` over a resident state,
+  with the micro-batcher and the Zipf-head cache, at one rank or at P
+  (rank 0 the front, the others followers), and `launch.serve --sparse`;
 - the dense face's serving path: prefill and greedy decode of the dense
   and vlm models (yi-6b, granite-8b, granite-34b, llama3-405b,
   chameleon-34b; `models.registry`, `train.serve.greedy_decode`,
@@ -26,6 +29,7 @@ topk_reduce's selection (`select_pack`) and prefill's attention
 
     from repro_torch import DPMRConfig, DPMREngine, get_source
     from repro_torch import get_spec, greedy_decode, init_params
+    from repro_torch import DPMRServeEngine, BatchingConfig, HotCacheConfig
 """
 from repro_torch.api.engine import DPMREngine
 from repro_torch.configs.base import DPMRConfig, ModelConfig
@@ -33,8 +37,10 @@ from repro_torch.core.dpmr import DPMRState, make_step_fns
 from repro_torch.data import get_source
 from repro_torch.models.common import init_params
 from repro_torch.models.registry import get_spec, smoke_config
+from repro_torch.serve import BatchingConfig, DPMRServeEngine, HotCacheConfig
 from repro_torch.train.serve import greedy_decode
 
-__all__ = ["DPMRConfig", "DPMREngine", "DPMRState", "ModelConfig",
-           "get_source", "get_spec", "greedy_decode", "init_params",
-           "make_step_fns", "smoke_config"]
+__all__ = ["BatchingConfig", "DPMRConfig", "DPMREngine", "DPMRServeEngine",
+           "DPMRState", "HotCacheConfig", "ModelConfig", "get_source",
+           "get_spec", "greedy_decode", "init_params", "make_step_fns",
+           "smoke_config"]

@@ -75,6 +75,19 @@ def put_batch(batch: dict, device, mesh=None) -> RankBatch:
     return put_sharded(batch, device, mesh)
 
 
+def pad_rows(ids: np.ndarray, vals: np.ndarray, rows: int
+             ) -> tuple[np.ndarray, np.ndarray]:
+    """(n, K) host ids and vals padded to `rows` rows with empty samples
+    (ids -1, vals 0), which every step reads as no feature."""
+    pad = rows - len(ids)
+    if pad:
+        ids = np.concatenate(
+            [ids, np.full((pad, ids.shape[1]), -1, ids.dtype)])
+        vals = np.concatenate(
+            [vals, np.zeros((pad, vals.shape[1]), vals.dtype)])
+    return ids, vals
+
+
 def _global_rows(batch: dict, key: str) -> int:
     """The GLOBAL batch size a batch dict stands for."""
     if isinstance(batch, RankBatch):
@@ -385,16 +398,9 @@ class DPMREngine:
         """`predict` with the batch padded to a bucketed size with empty
         samples (ids=-1, vals=0), results sliced back to the caller's
         rows; the first `n` probabilities equal `predict(batch)`'s."""
-        ids = np.asarray(batch["ids"])
-        vals = np.asarray(batch["vals"])
+        ids, vals = np.asarray(batch["ids"]), np.asarray(batch["vals"])
         n = len(ids)
-        b = self.bucket_for(n, buckets)
-        if b != n:
-            pad = b - n
-            ids = np.concatenate(
-                [ids, np.full((pad, ids.shape[1]), -1, ids.dtype)])
-            vals = np.concatenate(
-                [vals, np.zeros((pad, vals.shape[1]), vals.dtype)])
+        ids, vals = pad_rows(ids, vals, self.bucket_for(n, buckets))
         return self.predict({"ids": ids, "vals": vals})[:n]
 
     def evaluate(self, test_batches, *, spec: dict | None = None) -> dict:

@@ -244,6 +244,32 @@ def hot_grads(cfg, gflat, hot_slot, is_hot):
     return ghot[:cfg.max_hot]
 
 
+def row_probs(vals: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """σ(Σ_k vals·θ) of each row of (B, K) f32 tensors: the predict step's
+    arithmetic, in bits that depend neither on the device nor on B.
+
+    The row sum is a fixed halving tree of elementwise f32 adds (K padded
+    with zeros to a power of two, then `x[:, :h] + x[:, h:]` until one
+    column is left), each add correctly rounded on the card and on the
+    CPU alike, where a reduction kernel picks its order by device and
+    shape. The sigmoid runs in f64 and is rounded to f32 once. In f32,
+    `exp` differs between the card and the CPU, and on the CPU between
+    its vector and scalar loops, in the last bit of many rows; in f64 the
+    two differ by an ulp or two, which reaches the f32 result only when
+    the exact value lies within a few f64 ulps of an f32 rounding
+    boundary (a chance of about 1e-8 a row). So the serve cache computes
+    a hit on the host with the card's bits (`serve.hot_cache`)."""
+    x = vals * theta
+    k = x.shape[-1]
+    width = 1 << (k - 1).bit_length()
+    if width != k:
+        x = torch.nn.functional.pad(x, (0, width - k))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return torch.sigmoid(x[..., 0].to(torch.float64)).to(torch.float32)
+
+
 def _metrics(ctx, probs, labels, nll, overflow) -> dict:
     """Loss and accuracy as the mean over ranks of the ranks' means (the
     reference's pmean), overflow as their sum (its psum): one sum in rank
@@ -360,7 +386,7 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *, mesh=None,
     def predict(state: DPMRState, batch):
         theta, _, _ = _device_fwd(cfg, strategy, ctx, state.cold, state.hot,
                                   state.hot_ids, batch["ids"], batch["vals"])
-        return torch.sigmoid(torch.sum(batch["vals"] * theta, dim=-1))
+        return row_probs(batch["vals"], theta)
 
     return StepFns(train_step=train_step, grad_step=grad_step,
                    apply_update=apply_update, predict=predict,

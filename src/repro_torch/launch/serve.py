@@ -1,22 +1,50 @@
-"""Serving driver of the port: prefill + greedy decode of a dense model
-(the dense mode of `repro.launch.serve`), with weights made from a seed.
+"""Serving drivers of the port: dense LM decode, and the DPMR sparse
+serving engine (the two modes of `repro.launch.serve`).
+
+  dense (default)   prefill + greedy decode of a dense model (`--arch`),
+                    with weights made from a seed.
+  --sparse          a `repro_torch.serve.DPMRServeEngine` keeps the
+                    parameter state resident (restored from a sparse
+                    checkpoint of either package with `--ckpt`, or
+                    warm-trained in place with `--warm-steps`), and
+                    `--clients` threads stream `file_sparse` /
+                    `zipf_sparse`-shaped requests through the deadline-
+                    coalesced micro-batcher + hot-feature cache. Prints
+                    p50/p99 latency, sustained QPS, the cache/batching
+                    counters, and one JSON line: the metrics snapshot and
+                    the md5 of the answers in request order.
+
+The modes fail loudly when mixed: `--arch` is rejected under `--sparse`,
+and `--sparse` refuses a checkpoint whose manifest is not
+`kind=dpmr_sparse`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
         --device cpu                       # smoke size, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
         --no-smoke --batch 8 --prompt-len 4096 --decode-steps 32  # the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --sparse \\
+        --ckpt /tmp/sck                    # the card, one process
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.serve --sparse --ckpt /tmp/sck  # 4 cards
 
-It runs on the card unless `--device cpu` is given, and raises without
-one. The reference's `--sparse` mode (the DPMR serving engine) is not
-ported: ROADMAP A8.
+Under torchrun, rank 0 is the front (the batcher, the cache, the client
+threads) and every other rank a follower of its broadcasts
+(`DPMRServeEngine.serve_follower`). Everything runs on the card unless
+`--device cpu` is given (gloo under torchrun), and raises without one.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
+import logging
+import os
+import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.models import common, registry
@@ -46,6 +74,122 @@ def serve_dense(args) -> torch.Tensor:
     return toks
 
 
+log = logging.getLogger("repro_torch.serve")
+
+
+def serve_sparse(args) -> dict | None:
+    """Join torchrun's process group when there is one (rank 0 the front,
+    the others followers), serve, and leave it. Returns rank 0's summary
+    (None on a follower)."""
+    from repro_torch.launch.mesh import init_from_env, make_host_mesh
+
+    if "WORLD_SIZE" not in os.environ:
+        return run_sparse(args, resolve_device(args.device))
+    device = init_from_env(args.device)
+    try:
+        return run_sparse(args, device, make_host_mesh(
+            dist.get_world_size()))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sparse(args, device, mesh=None) -> dict | None:
+    """Drive the sparse serving engine on `device` (every rank of `mesh`
+    calls this); rank 0 returns the metrics snapshot with the md5 of the
+    answers in request order, and prints the summary."""
+    from repro_torch import DPMRConfig, DPMREngine, get_source
+    from repro_torch.serve import (BatchingConfig, DPMRServeEngine,
+                                   HotCacheConfig)
+
+    if args.data_dir:
+        source = get_source("file_sparse", directory=args.data_dir)
+    else:
+        source = get_source("zipf_sparse", batch_size=args.request_size,
+                            num_batches=max(args.requests, 1),
+                            num_features=args.features,
+                            features_per_sample=16, seed=args.data_seed)
+    k = int(source.batch(0)["ids"].shape[1])
+    cfg = DPMRConfig(num_features=args.features, max_features_per_sample=k,
+                     distribution=args.strategy)
+    batching = BatchingConfig(max_batch=args.max_batch,
+                              max_wait_ms=args.max_wait_ms)
+    hot = HotCacheConfig(max_hot=args.hot_max, threshold=args.hot_threshold,
+                         window=args.hot_window,
+                         refresh_every=args.hot_refresh_every) \
+        if args.hot_cache else None
+
+    if args.ckpt:
+        srv = DPMRServeEngine.from_checkpoint(cfg, args.ckpt, device=device,
+                                              mesh=mesh, batching=batching,
+                                              hot_cache=hot)
+        log.info("restored sparse state at step %d from %s",
+                 srv.engine.host_step(), args.ckpt)
+    else:
+        engine = DPMREngine(cfg, device=device, mesh=mesh)
+        if args.warm_steps:
+            engine.fit_sgd(source.iter_batches(), steps=args.warm_steps)
+            log.info("warm-trained %d steps (no --ckpt given)",
+                     args.warm_steps)
+        else:
+            log.warning("serving ZERO parameters (no --ckpt, no "
+                        "--warm-steps): every probability is 0.5")
+        srv = DPMRServeEngine(engine, batching=batching, hot_cache=hot)
+    if srv.rank != 0:
+        srv.serve_follower()
+        return None
+
+    n = args.requests
+    if source.num_batches is not None:
+        n = min(n, source.num_batches)
+    requests = [source.batch(i) for i in range(n)]
+    results: list = [None] * n
+    srv.metrics.reset_clock()
+    t0 = time.time()
+
+    def client(lo: int, hi: int) -> None:
+        for i in range(lo, hi):
+            results[i] = srv.submit(requests[i]["ids"],
+                                    requests[i]["vals"])
+
+    clients = max(1, args.clients)
+    per = -(-n // clients)
+    threads = [threading.Thread(target=client,
+                                args=(c * per, min(n, (c + 1) * per)))
+               for c in range(clients)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        probs = [np.asarray(f.result(timeout=120)) for f in results]
+        wall = time.time() - t0
+    finally:
+        srv.stop()          # releases the followers whatever happened
+
+    m = srv.metrics_snapshot()
+    print(f"[sparse] {n} requests x {requests[0]['ids'].shape[0]} samples "
+          f"from {clients} clients in {wall:.2f}s "
+          f"({n / max(wall, 1e-9):.1f} req/s)")
+    print(f"  latency p50 {m.get('latency_p50_ms', float('nan')):.2f}ms "
+          f"p99 {m.get('latency_p99_ms', float('nan')):.2f}ms; "
+          f"flushes {m.get('flushes', 0)} "
+          f"(full {m.get('flush_full', 0)} / deadline "
+          f"{m.get('flush_deadline', 0)}); "
+          f"compiled step fns {m['compiled_step_fns']}")
+    if args.hot_cache:
+        print(f"  hot cache: hit rate {m.get('hot_hit_rate', 0.0):.3f} "
+              f"({m.get('cache_hits', 0)} hits / "
+              f"{m.get('cache_misses', 0)} misses), "
+              f"refreshes {m.get('cache_refreshes', 0)} "
+              f"(stale {m.get('cache_stale_refreshes', 0)})")
+    print(f"  first request -> {probs[0][:4]}")
+    answers = np.concatenate(probs).astype(np.float32)
+    m["answers_md5"] = hashlib.md5(answers.tobytes()).hexdigest()
+    m["ranks"] = srv.engine.num_shards
+    print(json.dumps(m), flush=True)
+    return m
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", help="dense model id (repro_torch.configs)")
@@ -58,9 +202,45 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' to run "
                          "on the CPU)")
+    # sparse serving mode
     ap.add_argument("--sparse", action="store_true",
-                    help="the DPMR sparse serving engine: not ported "
-                         "(ROADMAP A8)")
+                    help="serve the DPMR sparse face through "
+                         "repro_torch.serve.DPMRServeEngine")
+    ap.add_argument("--ckpt", default="",
+                    help="sparse: restore this sparse checkpoint "
+                         "(manifest kind must be dpmr_sparse)")
+    ap.add_argument("--features", type=int, default=1 << 14,
+                    help="sparse: hashed feature-space size")
+    ap.add_argument("--strategy", default="a2a",
+                    help="sparse: distribution strategy name")
+    ap.add_argument("--data-dir", default="",
+                    help="sparse: serve requests shaped from a file_sparse "
+                         "corpus instead of the synthetic zipf stream")
+    ap.add_argument("--requests", type=int, default=128,
+                    help="sparse: number of requests to drive")
+    ap.add_argument("--request-size", type=int, default=4,
+                    help="sparse: samples per request (zipf source)")
+    ap.add_argument("--clients", type=int, default=8,
+                    help="sparse: concurrent client threads")
+    ap.add_argument("--max-batch", type=int, default=64,
+                    help="sparse: coalescer flush size (rows)")
+    ap.add_argument("--max-wait-ms", type=float, default=2.0,
+                    help="sparse: coalescer deadline window")
+    ap.add_argument("--hot-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="sparse: host-side Zipf-head parameter cache")
+    ap.add_argument("--hot-max", type=int, default=256,
+                    help="sparse: hot-cache slots")
+    ap.add_argument("--hot-threshold", type=float, default=0.001,
+                    help="sparse: min in-window frequency to cache")
+    ap.add_argument("--hot-window", type=int, default=512,
+                    help="sparse: sliding request window size")
+    ap.add_argument("--hot-refresh-every", type=int, default=256,
+                    help="sparse: staleness bound (lookups per mirror)")
+    ap.add_argument("--warm-steps", type=int, default=0,
+                    help="sparse: train this many steps in place when no "
+                         "--ckpt is given (demo-quality parameters)")
+    ap.add_argument("--data-seed", type=int, default=0)
     return ap
 
 
@@ -68,10 +248,16 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.sparse:
-        ap.error("--sparse (the DPMR sparse serving engine) is not ported "
-                 "yet: ROADMAP A8")
+        if args.arch:
+            # fail loudly instead of silently ignoring a dense config: the
+            # two modes serve different state and share no flags
+            ap.error(f"--arch {args.arch!r} is a dense LM config; the "
+                     "sparse mode serves a DPMR checkpoint (--ckpt) — "
+                     "pass exactly one of --arch / --sparse")
+        logging.basicConfig(level=logging.INFO)
+        return serve_sparse(args)
     if not args.arch:
-        ap.error("--arch is required")
+        ap.error("--arch is required (or pass --sparse)")
     return serve_dense(args)
 
 

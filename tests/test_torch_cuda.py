@@ -751,3 +751,77 @@ def test_async_save_holds_the_pre_step_bits_on_the_card(cuda, strategy,
     for a, b in zip(arrs, before, strict=True):
         assert a.tobytes() == b.cpu().numpy().tobytes()
     assert not torch.equal(eng.state.cold, before[0])
+
+
+def _serving_engine(cuda):
+    """An a2a engine on the card with a model-hot set, trained 8 steps at
+    2^16 features, K 64; and its source."""
+    from repro_torch import DPMRConfig, DPMREngine, get_source
+    from repro_torch.api import hot_ids_from_corpus
+
+    cfg = DPMRConfig(num_features=1 << 16, max_features_per_sample=64,
+                     max_hot=64, learning_rate=2.0, optimizer="adagrad")
+    src = get_source("zipf_sparse", batch_size=256, num_batches=8,
+                     num_features=1 << 16, features_per_sample=64, seed=0)
+    batches = [src.batch(i) for i in range(8)]
+    hot = hot_ids_from_corpus(cfg, batches[:4], device=cuda)
+    eng = DPMREngine(cfg, device=cuda, hot_ids=hot)
+    eng.fit_sgd(batches)
+    return eng, batches
+
+
+@pytest.mark.gpu
+def test_serve_hit_bit_identical_to_flush_at_every_request_size(cuda):
+    """A hit, computed on the host from the mirror, has the bits of the
+    card's predict_padded and of the same request flushed through the
+    batcher, at every request size from 1 to 64 (window 1 and a refresh a
+    lookup: the mirror holds each request's own ids, so each hits)."""
+    from repro_torch.serve import (BatchingConfig, DPMRServeEngine,
+                                   HotCacheConfig, HotFeatureCache)
+
+    eng, batches = _serving_engine(cuda)
+    cache = HotFeatureCache(eng, HotCacheConfig(
+        max_hot=4096, threshold=0.0, window=1, refresh_every=1))
+    srv = DPMRServeEngine(eng, batching=BatchingConfig(max_batch=1,
+                                                       max_wait_ms=0.0),
+                          hot_cache=None)
+    try:
+        for n in range(1, 65):
+            b = batches[n % 8]
+            ids, vals = b["ids"][n:2 * n], b["vals"][n:2 * n]
+            cache.observe(ids)
+            hit = cache.lookup(ids, vals)
+            assert hit is not None, n
+            flushed = srv.submit(ids, vals).result(timeout=120)
+            card = eng.predict_padded({"ids": ids, "vals": vals})
+            assert np.array_equal(hit, card), n
+            assert np.array_equal(hit, flushed), n
+    finally:
+        srv.stop()
+    assert cache.metrics.snapshot()["cache_hits"] == 64
+
+
+@pytest.mark.gpu
+def test_serve_fresh_lookup_reads_no_device_value(cuda):
+    """Freshness reads the step the engine counts on the host: lookups on
+    a fresh mirror, hits and misses, make no synchronizing device call
+    (a read of state.step would wait behind every queued predict)."""
+    from repro_torch.serve import HotCacheConfig, HotFeatureCache
+
+    eng, batches = _serving_engine(cuda)
+    cache = HotFeatureCache(eng, HotCacheConfig(
+        max_hot=4096, threshold=0.0, window=8, refresh_every=1000))
+    ids, vals = batches[0]["ids"][:4], batches[0]["vals"][:4]
+    tail = np.full_like(ids, -1)
+    tail[0, 0] = int(ids.max()) + 1            # a feature never observed
+    cache.observe(ids)
+    assert cache.lookup(ids, vals) is not None     # gathers the mirror
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            assert cache.lookup(ids, vals) is not None
+        assert cache.lookup(tail, vals) is None
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    m = cache.metrics.snapshot()
+    assert m["cache_refreshes"] == 1 and m["cache_hits"] == 6

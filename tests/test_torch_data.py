@@ -12,6 +12,11 @@ error in the consumer. `fit_sgd`, `fit` and `evaluate` take the data
 plane as the reference's do (F1: `steps` past one epoch rolls over, as
 the reference's loader does), within atol 1e-5 of the JAX engine.
 """
+import json
+import os
+import pathlib
+import subprocess
+import sys
 import warnings
 
 import numpy as np
@@ -21,7 +26,6 @@ from repro.configs.base import DPMRConfig as JaxConfig
 from repro.data import ShardAssignment as JaxAssignment
 from repro.data import ShardedLoader as JaxLoader
 from repro.data import get_source as jax_get_source
-from repro.data import list_sources as jax_list_sources
 from repro.data import reassign_state as jax_reassign
 from repro.data import write_file_corpus as jax_write_corpus
 from repro_torch.configs.base import DPMRConfig
@@ -87,7 +91,17 @@ def test_shard_assignment_matches_reference(chunks, hosts):
 
 
 def test_source_registries_match():
-    assert list_sources() == jax_list_sources()
+    """The port registers the reference's sources. The reference's own
+    registry is read in a fresh interpreter: other test files of a worker
+    register sources of their own into it (tests/test_data.py)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(pathlib.Path(__file__).resolve().parents[1] / "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run(
+        [sys.executable, "-c", "import json; from repro.data import "
+         "list_sources; print(json.dumps(list_sources()))"],
+        env=env, capture_output=True, text=True, timeout=120, check=True)
+    assert list_sources() == json.loads(out.stdout.strip().splitlines()[-1])
 
 
 @pytest.mark.parametrize("encdec", [0, 8])
