@@ -131,6 +131,24 @@ Phases, in order; any failure exits non-zero:
               generator copied to the card: prefill (2 x 256) and 4
               decode steps on the card and on the CPU; the card's prefill
               again with the plain attention put in the kernel's place
+  13. train_dense  the dense trainer (train.trainer.make_train_step) on
+              yi-6b at full width: (a) configuration 9, 4 layers, batch
+              4 x 4096 of lm_markov (seed 0) through launch.train's loader,
+              adamw lr 3e-4 warmup 2, remat full, 10 steps with the launch
+              counters set to 0 just before and read just after (the
+              path reaches none of the four kernels): step ms, tokens/s,
+              model TFLOP/s and its share of the bf16 peak, peak memory,
+              the losses (finite, step 10 below step 1), a profiled
+              window of 2 steps (idle share, top device operations);
+              (b) one sgd step at 1 layer, 1 x 256, on the card and on
+              the CPU from the same params (convert); (c) at 1 layer and
+              4 x 4096, remat dots and none against full bit for bit
+              (peak memory of each) and microbatches 2 against 1; (d)
+              launch.train --arch granite-8b --smoke, killed at step 13
+              under run_with_restarts (async saves every 5) and preempted
+              at step 18, each against an uninterrupted 30-step run (and a
+              second uninterrupted run against the first). Its files
+              under build/ are deleted at the end
 Then one `{"kernels": [...]}` line, and last the device line
 `{"ok": true, "device": {...}}`. Measurements also go to
 results/chip_smoke.json.
@@ -2960,6 +2978,350 @@ def phase_dense_parity(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the dense trainer
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4, 4096, 10
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+# card vs CPU, and microbatches 2 vs 1 (sgd, so the params move by lr g):
+# the loss within 2^-8 of its size, bf16's unit roundoff; the grad norm
+# within 2^-6; each param leaf within 2^-5 (8 bf16 units) of its largest
+# update, plus one f32 ulp of its largest value for the rounding of the
+# stored p - lr g. Each side rounds its bf16 activations at the same
+# places but sums in its own order.
+LOSS_TOL, GNORM_TOL, STEP_TOL = 2.0 ** -8, 2.0 ** -6, 2.0 ** -5
+FT_TOL = 1e-5       # restarted vs uninterrupted f32 runs (the CPU tests')
+
+
+def train_config(num_layers):
+    """yi-6b at full width (bf16 activations, f32 masters and moments),
+    cut to `num_layers`."""
+    import dataclasses
+
+    from repro_torch.models import registry
+
+    spec = registry.get_spec(ARCH)
+    return spec, dataclasses.replace(spec.cfg, num_layers=num_layers)
+
+
+def _train_state(torch, spec, cfg, tc, pc, dev):
+    from repro_torch.train import trainer
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return trainer.init_state(spec, cfg, tc, pc, gen, dev)
+
+
+def _lm_batches(cfg, batch, seq, n, dev):
+    """`n` lm_markov batches (seed 0) through the training CLI's loader
+    (`launch.train.make_loader`: whole batches on `dev`, prefetched)."""
+    import argparse
+
+    from repro_torch.launch import train
+
+    args = argparse.Namespace(seq=seq, batch=batch, data_seed=SEED,
+                              prefetch=2)
+    return train.make_loader(args, cfg, dev).batches(n)
+
+
+def _step_metrics(m):
+    return {k: float(v) for k, v in m.items()}
+
+
+def _param_gap(torch, state, ref, before):
+    """Per leaf: the gap max |p - p_ref| less one f32 ulp of the leaf's
+    largest value (the rounding of the stored p - lr g, whatever the
+    update), over the reference's largest update max |p_ref - p_before|.
+    Returns the worst leaf's ratio and {leaf: (ratio, gap, update)}."""
+    worst, rows = 0.0, {}
+    ref_p = dict(ref["params"].named_parameters())
+    with torch.no_grad():
+        for name, p in state["params"].named_parameters():
+            r = ref_p[name].detach().float().cpu()
+            gap = float((p.detach().float().cpu() - r).abs().max())
+            upd = float((r - before[name]).abs().max())
+            ulp = float(r.abs().max()) * 2.0 ** -23
+            ratio = max(gap - ulp, 0.0) / upd
+            rows[name] = (ratio, gap, upd)
+            worst = max(worst, ratio)
+    return worst, rows
+
+
+def _agree(tag, got, want, gap):
+    dl = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    dg = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+    ok = dl <= LOSS_TOL and dg <= GNORM_TOL and gap <= STEP_TOL
+    log(f"[train_dense] {tag}: loss {got['loss']:.6f} vs {want['loss']:.6f} "
+        f"(rel {dl:.3e}, tol {LOSS_TOL:.3e}); grad norm "
+        f"{got['grad_norm']:.6f} vs {want['grad_norm']:.6f} (rel {dg:.3e}, "
+        f"tol {GNORM_TOL:.3e}); params: worst leaf (gap - ulp) / its "
+        f"update {gap:.3e} (tol {STEP_TOL:.3e}) ok={ok}")
+    require(ok, f"{tag}: the two steps disagree")
+    return {"loss_rel": dl, "grad_norm_rel": dg, "param_gap": gap}
+
+
+def _train_main(torch, dev):
+    """(a) configuration 9: 10 adamw steps at 4 x 4096, 4 layers."""
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.train import trainer
+
+    spec, cfg = train_config(TRAIN_LAYERS)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=TRAIN_STEPS, optimizer="adamw")
+    pc = ParallelConfig(remat="full")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state = _train_state(torch, spec, cfg, tc, pc, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    state_bytes = torch.cuda.memory_allocated()
+    step = trainer.make_train_step(spec, cfg, tc, pc)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    losses, step_ms, metrics = [], [], []
+    ops.reset_launch_counts()
+    batch = None
+    for batch in _lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, dev):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        metrics.append(_step_metrics(m))
+        losses.append(metrics[-1]["loss"])
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    require(len(losses) == TRAIN_STEPS, f"{len(losses)} steps ran")
+    require(all(np.isfinite(x) for x in losses), f"losses {losses}")
+    require(losses[-1] < losses[0],
+            f"step {TRAIN_STEPS}'s loss {losses[-1]} is not below step 1's "
+            f"{losses[0]}")
+    require(sum(counts.values()) == 0,
+            f"training launched {counts}: its path reaches none of the "
+            "four kernels")
+    med = statistics.median(step_ms[2:])
+    attn = 3 * 4 * cfg.resolved_head_dim * TRAIN_BATCH * cfg.num_heads \
+        * cfg.num_layers * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    model_flops = 6 * n_params * tokens + attn
+    tflops = model_flops / (med / 1e3) / 1e12
+    log(f"[train_dense] {ARCH} at full width cut to {cfg.num_layers} layers: "
+        f"{n_params} params ({state_bytes / 2 ** 30:.3f} GiB of state after "
+        f"init, {init_s:.2f} s); batch {TRAIN_BATCH} x {TRAIN_SEQ}, adamw lr "
+        f"{TRAIN_LR} warmup {TRAIN_WARMUP}, remat full")
+    log(f"[train_dense] step ms {[round(x, 3) for x in step_ms]}; median of "
+        f"steps 3-{TRAIN_STEPS} {med:.3f} ms, {tokens / med * 1e3:.1f} "
+        f"tokens/s; model FLOPs a step {model_flops:.4e} (6 N tokens "
+        f"{6 * n_params * tokens:.4e} + causal attention fwd+bwd "
+        f"{attn:.4e}) = {tflops:.2f} TFLOP/s, {tflops / 989:.4f} of the "
+        f"bf16 dense peak 989 TFLOP/s (NVIDIA H100 SXM data sheet); "
+        f"max_memory_allocated {peak / 2 ** 30:.3f} GiB ({peak} B)")
+    log(f"[train_dense] losses {[round(x, 5) for x in losses]}; lr "
+        f"{[m['lr'] for m in metrics]}; grad norm "
+        f"{[round(m['grad_norm'], 4) for m in metrics]}; launches {counts}")
+
+    def one_step():
+        step(state, batch)
+
+    prof = profile_window(torch, one_step, 2, "train step")
+    out = {"arch": ARCH, "layers": cfg.num_layers, "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "init_s": init_s,
+           "state_bytes": state_bytes, "step_ms": step_ms,
+           "step_ms_median": med, "tokens_per_s": tokens / med * 1e3,
+           "model_flops": model_flops, "model_tflops": tflops,
+           "peak_share": tflops / 989, "max_memory_allocated": peak,
+           "losses": losses, "metrics": metrics, "launches": counts,
+           "profile": prof}
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _one_step(torch, state, batch, spec, cfg, tc, pc):
+    from repro_torch.train import trainer
+
+    state, m = trainer.make_train_step(spec, cfg, tc, pc)(state, batch)
+    return state, _step_metrics(m)
+
+
+def _train_vs_cpu(torch, dev):
+    """(b) one sgd step at full width, 1 layer, 1 x 256, on the card and
+    on the CPU from the same params carried by `convert`."""
+    from repro_torch import convert
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.train import trainer
+
+    spec, cfg = train_config(1)
+    tc = TrainConfig(learning_rate=1e-2, warmup_steps=0, optimizer="sgd")
+    pc = ParallelConfig()
+    cpu = trainer.init_state(spec, cfg, tc, pc,
+                             torch.Generator().manual_seed(SEED), "cpu")
+    card = convert.train_state_from_numpy(convert.train_state_to_numpy(cpu),
+                                          cfg, dev)
+    before = {n: p.detach().clone()
+              for n, p in cpu["params"].named_parameters()}
+    batch = list(_lm_batches(cfg, 1, 256, 1, "cpu"))[0]
+    t = time.perf_counter()
+    cpu, want = _one_step(torch, cpu, batch, spec, cfg, tc, pc)
+    cpu_s = time.perf_counter() - t
+    card, got = _one_step(torch, card, {k: v.to(dev) for k, v in
+                                        batch.items()}, spec, cfg, tc, pc)
+    gap, rows = _param_gap(torch, card, cpu, before)
+    worst = sorted(rows.items(), key=lambda kv: -kv[1][0])[:4]
+    log(f"[train_dense] card vs CPU (1 layer, 1 x 256; the CPU step "
+        f"{cpu_s:.1f} s); worst leaves (gap less an ulp over the update, "
+        f"gap, update): {worst}")
+    out = _agree("card vs CPU, one sgd step", got, want, gap)
+    del card, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_variants(torch, dev):
+    """(c) at 1 layer and configuration 9's batch: the first adamw step
+    under remat full, dots and none (bit for bit), and microbatches 2
+    against 1 (sgd, within the tolerances of (b))."""
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+
+    spec, cfg = train_config(1)
+    batch = list(_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev))[0]
+    out = {"remat": {}}
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=0,
+                     optimizer="adamw")
+    ref = None
+    for remat in ("full", "dots", "none"):
+        pc = ParallelConfig(remat=remat)
+        state = _train_state(torch, spec, cfg, tc, pc, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state, m = _one_step(torch, state, batch, spec, cfg, tc, pc)
+        ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        params = {n: p.detach().clone()
+                  for n, p in state["params"].named_parameters()}
+        same = ref is None or (m == ref[0] and all(
+            torch.equal(params[n], ref[1][n]) for n in params))
+        log(f"[train_dense] remat {remat}: first step loss {m['loss']:.6f} "
+            f"grad norm {m['grad_norm']:.6f}, {ms:.1f} ms (one step, "
+            f"including its first use of the shapes), max_memory_allocated "
+            f"{peak / 2 ** 30:.3f} GiB; loss and params bit-identical to "
+            f"remat full: {same}")
+        require(same, f"remat {remat} differs from remat full")
+        out["remat"][remat] = {"metrics": m, "ms": ms, "peak": peak}
+        if ref is None:
+            ref = (m, params)
+        del state
+        torch.cuda.empty_cache()
+    del ref
+    tc = TrainConfig(learning_rate=1e-2, warmup_steps=0, optimizer="sgd")
+    runs = []
+    for k in (1, 2):
+        pc = ParallelConfig(microbatches=k)
+        state = _train_state(torch, spec, cfg, tc, pc, dev)
+        if k == 1:
+            before = {n: p.detach().float().cpu().clone()
+                      for n, p in state["params"].named_parameters()}
+        state, m = _one_step(torch, state, batch, spec, cfg, tc, pc)
+        runs.append((state, m))
+    gap, _ = _param_gap(torch, runs[1][0], runs[0][0], before)
+    out["microbatches"] = _agree("microbatches 2 vs 1, one sgd step",
+                                 runs[1][1], runs[0][1], gap)
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+class _PreemptAt:
+    """Triggers a `PreemptionGuard` before step `at`, as SIGTERM would."""
+
+    def __init__(self, guard, at):
+        self.guard, self.at = guard, at
+
+    def maybe_fail(self, step):
+        if step == self.at:
+            self.guard.trigger()
+
+
+def _train_restarts(torch, dev):
+    """(d) `launch.train --arch granite-8b --smoke` on the card: killed at
+    step 13 under `run_with_restarts` (async saves every 5), and preempted
+    after step 18 (blocking saves), each against an uninterrupted 30-step
+    run."""
+    from repro_torch import convert
+    from repro_torch.launch import train
+    from repro_torch.runtime import fault_tolerance as ft
+
+    root = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", "granite-8b", "--smoke", "--steps", "30", "--batch",
+            "4", "--seq", "32", "--log-every", "0", "--no-preemption-guard"]
+
+    def run(ckpt="", extra=(), **kw):
+        if ckpt:
+            extra = ["--ckpt", str(ckpt), "--save-every", "5", *extra]
+        return train.train_loop(train.build_parser().parse_args(
+            argv + list(extra)), **kw)
+
+    def compare(tag, got, want):
+        a = convert.params_to_numpy(got["state"]["params"])
+        b = convert.params_to_numpy(want["state"]["params"])
+        gap = max(float(np.abs(x - y).max()) for (_, x), (_, y) in
+                  zip(convert.tree_leaves(a), convert.tree_leaves(b),
+                      strict=True))
+        same = train.params_md5(got["state"]["params"]) == \
+            train.params_md5(want["state"]["params"])
+        log(f"[train_dense] {tag}: last step {got['last_step']}, final "
+            f"params max|d| {gap:.3e} against the uninterrupted run "
+            f"(tol {FT_TOL}); bit-identical: {same}")
+        require(got["last_step"] == 30 and gap <= FT_TOL,
+                f"{tag}: not the uninterrupted run's params")
+        return {"max_abs_diff": gap, "bit_identical": same}
+
+    try:
+        whole = run()
+        again = run()
+        out = {"repeat": compare("a second uninterrupted run", again, whole)}
+        inj = ft.FailureInjector(fail_at_steps=[13])
+        runs = []
+
+        def loop(_):
+            runs.append(run(root / "inject", ["--async-ckpt"],
+                            fail_injector=inj))
+            return runs[-1]["last_step"]
+
+        require(ft.run_with_restarts(loop, max_restarts=2) == 30
+                and inj.failed == [13], f"restarts: failed {inj.failed}")
+        out["failure_at_13"] = compare(
+            "killed at step 13 (async saves), restarted from step 10",
+            runs[-1], whole)
+        guard = ft.PreemptionGuard(signals=())
+        stopped = run(root / "preempt", fail_injector=_PreemptAt(guard, 17),
+                      guard=guard)
+        from repro_torch.ckpt.checkpointer import Checkpointer
+
+        saved = Checkpointer(str(root / "preempt")).latest_step()
+        require(stopped["last_step"] == 18 and saved == 18,
+                f"preemption stopped at {stopped['last_step']}, saved "
+                f"{saved}")
+        out["preempted_at_18"] = compare(
+            "preempted after step 18 (saved, stopped), run again",
+            run(root / "preempt"), whole)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_train_dense(torch, dev):
+    """The dense trainer: (a) configuration 9, (b) card vs CPU, (c) remat
+    modes and microbatches, (d) fault tolerance."""
+    return {"main": _train_main(torch, dev),
+            "card_vs_cpu": _train_vs_cpu(torch, dev),
+            "variants": _train_variants(torch, dev),
+            "restarts": _train_restarts(torch, dev)}
+
+
 def main():
     import torch
 
@@ -3000,6 +3362,7 @@ def main():
     del model
     torch.cuda.empty_cache()
     dense_parity = phase_dense_parity(torch, dev)
+    train_dense = phase_train_dense(torch, dev)
 
     kernels = [results[name] for name in ("sigmoid_grad",
                                           "segment_sum_sorted",
@@ -3014,7 +3377,8 @@ def main():
          "engine": engine, "dataplane": dataplane,
          "multirank": multirank, "p8": p8,
          "parity": parity, "sparse_serve": sparse_serve, "serve": served,
-         "dense_parity": dense_parity}, indent=1))
+         "dense_parity": dense_parity, "train_dense": train_dense},
+        indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

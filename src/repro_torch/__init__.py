@@ -20,7 +20,11 @@ for module and never imports it. What it covers today:
 - the dense face's serving path: prefill and greedy decode of the dense
   and vlm models (yi-6b, granite-8b, granite-34b, llama3-405b,
   chameleon-34b; `models.registry`, `train.serve.greedy_decode`,
-  `launch.serve`).
+  `launch.serve`);
+- the dense trainer on one card (`train.trainer`, `launch.train --arch`):
+  the training forward under autograd and remat, the dense optimizers,
+  microbatches and clipping, checkpoints in the reference's tree, and
+  fault tolerance (`runtime.fault_tolerance`).
 
 The map body (`sigmoid_grad`), the sorted reduces (`segment_sum_sorted`),
 topk_reduce's selection (`select_pack`) and prefill's attention

@@ -5,7 +5,10 @@ either package reads the other's checkpoints:
     <dir>/step_<N>/            N as %010d
         manifest.json          structure, shapes, dtypes, step, extras
         arr_<i>.npy            one file per leaf, the FULL logical array,
-                               in `DPMRState` field order
+                               in `DPMRState` field order, or for a dict
+                               tree (the dense trainer's state) in the
+                               reference's order: keys sorted at every
+                               level, so `opt`, `params`, `step`
 
 Guarantees:
   - atomicity, twice over: leaves land in `step_<N>.tmp`, which is
@@ -31,6 +34,13 @@ Guarantees:
     raised); every save joins the previous one first, so the buffers are
     free to reuse.
 
+A dense train state (`{"params": model, "opt", "step"}`) is saved as
+the reference's tree (`convert.train_state_tree`): each layer-stacked
+leaf is copied a layer at a time into one (L, ...) host buffer, with no
+stacked copy on the card, and `restore` copies the arrays back into the
+live tensors of a state of the same structure. Either package restores
+the other's dense checkpoint.
+
 Multi-rank: every rank calls `save` with the mesh (the gather of the
 sharded leaves, every rank's block in rank order, is a collective), and
 only rank 0 touches the filesystem; the directory must be shared. A
@@ -50,23 +60,62 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.convert import SHARDED, state_from_numpy
+from repro_torch.convert import (
+    SHARDED,
+    state_from_numpy,
+    train_state_tree,
+    tree_leaves,
+)
 from repro_torch.runtime import multiprocess
 
 
+def _tree(state) -> dict:
+    """A dict state as a tree: a dense train state (its params a module)
+    as the reference's tree over its tensors, any other dict as it is."""
+    if isinstance(state.get("params"), torch.nn.Module):
+        return train_state_tree(state)
+    return state
+
+
+def _dict_path(path: tuple) -> str:
+    # the string of the reference's key path for a dict leaf
+    keys = [f"DictKey(key='{k}')" for k in path]
+    return f"({keys[0]},)" if len(keys) == 1 else f"({', '.join(keys)})"
+
+
 def _named_leaves(state) -> list[tuple[str, object]]:
-    """(name, leaf) in order: a NamedTuple's fields by name, any other
-    sequence by index (its leaves replicated)."""
+    """(manifest path, leaf) in the reference's order. The paths are the
+    strings the reference's manifest holds, so both packages write the
+    same manifest for one state: a dict tree's key paths (sorted keys), a
+    NamedTuple's fields by name, any other sequence by index (its leaves
+    replicated)."""
+    if isinstance(state, dict):
+        return [(_dict_path(path), leaf)
+                for path, leaf in tree_leaves(_tree(state))]
     names = getattr(state, "_fields", None)
     if names is None:
-        return [(str(i), leaf) for i, leaf in enumerate(state)]
-    return list(zip(names, state, strict=True))
+        return [(f"[{i}]", leaf) for i, leaf in enumerate(state)]
+    return [(f"(GetAttrKey(name='{name}'),)", leaf)
+            for name, leaf in zip(names, state, strict=True)]
 
 
-def _path(name: str, named: bool) -> str:
-    # the path strings the reference's manifest holds for a NamedTuple's
-    # fields, so both packages write the same manifest for one state
-    return f"(GetAttrKey(name='{name}'),)" if named else f"[{name}]"
+def _as_tensor(leaf):
+    """A leaf as a detached tensor, or a list of them (a stacked leaf)."""
+    if isinstance(leaf, list):
+        return [t.detach() for t in leaf]
+    if not torch.is_tensor(leaf):
+        leaf = torch.as_tensor(np.asarray(leaf))
+    return leaf.detach()
+
+
+def _shape(leaf) -> list[int]:
+    if isinstance(leaf, list):
+        return [len(leaf), *leaf[0].shape]
+    return list(leaf.shape)
+
+
+def _first(leaf) -> torch.Tensor:
+    return leaf[0] if isinstance(leaf, list) else leaf
 
 
 class Checkpointer:
@@ -80,24 +129,31 @@ class Checkpointer:
 
     # -- save ---------------------------------------------------------------
 
-    def _snapshot(self, i: int, t: torch.Tensor) -> torch.Tensor:
-        """Copy `t` into leaf i's kept host buffer, `non_blocking` on the
-        current stream when `t` is on the card."""
+    def _snapshot(self, i: int, leaf) -> torch.Tensor:
+        """Copy `leaf` (a tensor, or a list of them stacked) into leaf i's
+        kept host buffer, `non_blocking` on the current stream when it is
+        on the card."""
+        first, shape = _first(leaf), torch.Size(_shape(leaf))
         buf = self._buffers.get(i)
-        pinned = t.is_cuda
-        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype \
+        pinned = first.is_cuda
+        if buf is None or buf.shape != shape or buf.dtype != first.dtype \
                 or buf.is_pinned() != pinned:
             buf = self._buffers[i] = torch.empty(
-                t.shape, dtype=t.dtype, pin_memory=pinned)
-        buf.copy_(t, non_blocking=pinned)
+                shape, dtype=first.dtype, pin_memory=pinned)
+        if isinstance(leaf, list):
+            for part, t in zip(buf, leaf, strict=True):
+                part.copy_(t, non_blocking=pinned)
+        else:
+            buf.copy_(leaf, non_blocking=pinned)
         return buf
 
     def save(self, step: int, state, extra: dict | None = None,
              block: bool = True, mesh=None):
-        """Snapshot `state` (a `DPMRState`, or a sequence of tensors or
-        arrays) at `step`. With a `mesh` of P > 1 ranks the `SHARDED`
-        fields of a `DPMRState` are this rank's blocks and are gathered
-        whole (every rank must call this).
+        """Snapshot `state` (a `DPMRState`, a dense train state or another
+        dict tree, or a sequence of tensors or arrays) at `step`. With a
+        `mesh` of P > 1 ranks the `SHARDED` fields of a `DPMRState` are
+        this rank's blocks and are gathered whole (every rank must call
+        this).
 
         The device->host copies are enqueued HERE, on the current stream:
         that is the snapshot point, and later in-place updates of the
@@ -105,25 +161,24 @@ class Checkpointer:
         np.save, the manifest's fsync, the atomic renames, GC) runs inline
         (`block=True`) or on a thread."""
         self.wait()
-        named = getattr(state, "_fields", None) is not None
+        fields = getattr(state, "_fields", ())
         leaves = []
-        for name, leaf in _named_leaves(state):
-            if not torch.is_tensor(leaf):
-                leaf = torch.as_tensor(np.asarray(leaf))
-            if named and name in SHARDED and mesh is not None \
+        for i, (path, leaf) in enumerate(_named_leaves(state)):
+            leaf = _as_tensor(leaf)
+            if fields and fields[i] in SHARDED and mesh is not None \
                     and int(mesh.size()) > 1:
                 whole = leaf.new_empty((int(mesh.size()) * leaf.shape[0],
                                         *leaf.shape[1:]))
                 dist.all_gather_into_tensor(whole, leaf.contiguous())
                 leaf = whole
-            leaves.append((name, leaf.detach()))
+            leaves.append((path, leaf))
         manifest = {
             "step": int(step),
             "num_leaves": len(leaves),
-            "paths": [_path(name, named) for name, _ in leaves],
-            "shapes": [list(t.shape) for _, t in leaves],
-            "dtypes": [str(torch.empty(0, dtype=t.dtype).numpy().dtype)
-                       for _, t in leaves],
+            "paths": [path for path, _ in leaves],
+            "shapes": [_shape(t) for _, t in leaves],
+            "dtypes": [str(torch.empty(0, dtype=_first(t).dtype).numpy()
+                           .dtype) for _, t in leaves],
             "extra": extra or {},
             "time": time.time(),
         }
@@ -133,7 +188,7 @@ class Checkpointer:
             return      # the gather above was the collective part
         host = [self._snapshot(i, t) for i, (_, t) in enumerate(leaves)]
         copied = None
-        cuda = [t.device for _, t in leaves if t.is_cuda]
+        cuda = [_first(t).device for _, t in leaves if _first(t).is_cuda]
         if cuda:
             copied = torch.cuda.Event()
             copied.record(torch.cuda.current_stream(cuda[0]))
@@ -241,14 +296,35 @@ class Checkpointer:
         return arrs, manifest
 
     def restore(self, like, step: int | None = None, mesh=None):
-        """Restore into the structure of `like` (a `DPMRState` on its
-        device): this rank's blocks of the saved full arrays on `mesh`.
-        Returns (state, manifest)."""
+        """Restore into the structure of `like`: a `DPMRState` on its
+        device (this rank's blocks of the saved full arrays on `mesh`), or
+        a dense train state or another dict tree of tensors, whose tensors
+        take the saved arrays IN PLACE. Returns (state, manifest)."""
         arrs, manifest = self.restore_host(step)
+        if isinstance(like, dict):
+            return _restore_tree(like, arrs, manifest), manifest
         if len(arrs) != len(like):
             raise ValueError(f"checkpoint has {len(arrs)} leaves, the "
                              f"state {len(like)}")
         return state_from_numpy(arrs, like[0].device, mesh), manifest
+
+
+def _restore_tree(like: dict, arrs: list, manifest: dict) -> dict:
+    leaves = _named_leaves(like)
+    paths = [path for path, _ in leaves]
+    if paths != manifest["paths"]:
+        raise ValueError(f"the checkpoint's leaves {manifest['paths']} are "
+                         f"not the state's {paths}")
+    with torch.no_grad():
+        for (path, leaf), arr in zip(leaves, arrs, strict=True):
+            if list(arr.shape) != _shape(leaf):
+                raise ValueError(f"{path}: saved shape {list(arr.shape)}, "
+                                 f"the state's {_shape(leaf)}")
+            parts = zip(leaf, arr) if isinstance(leaf, list) \
+                else [(leaf, arr)]
+            for t, a in parts:
+                t.copy_(torch.as_tensor(a))
+    return like
 
 
 def manifest_extra(directory: str, step: int | None = None) -> dict:

@@ -1,11 +1,17 @@
 """Arch-id -> config registry of the port (counterpart of `repro.configs`).
 
 Architecture ids use the reference's spelling (dashes/dots); module names
-use underscores. The port serves the `dense` and `vlm` families, so only
-their configs are here; any other id raises a `KeyError` naming ROADMAP
-A12, where the reference's other families wait.
+use underscores. The port serves and trains the `dense` and `vlm`
+families, so only their configs are here; any other id raises a
+`KeyError` naming ROADMAP A12, where the reference's other families
+wait.
 """
-from repro_torch.configs.base import DPMRConfig, ModelConfig
+from repro_torch.configs.base import (
+    DPMRConfig,
+    ModelConfig,
+    ParallelConfig,
+    TrainConfig,
+)
 
 _ARCH_MODULES = {
     "granite-8b": "granite_8b",
@@ -31,4 +37,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "DPMRConfig", "ModelConfig", "get_config"]
+__all__ = ["ARCH_IDS", "DPMRConfig", "ModelConfig", "ParallelConfig",
+           "TrainConfig", "get_config"]

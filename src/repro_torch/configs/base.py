@@ -8,9 +8,18 @@ device) and `seed` come back with the code that reads them, so passing
 one is an error rather than silently ignored.
 
 `ModelConfig` is the counterpart of `repro.configs.base.ModelConfig` (the
-dense face), with all of its fields and defaults; the port serves the
-`dense` and `vlm` families, and its model code raises on the fields of
-the families it does not run yet (MoE experts, a sliding window).
+dense face), with all of its fields and defaults; the port serves and
+trains the `dense` and `vlm` families, and its model code raises on the
+fields of the families it does not run yet (MoE experts, a sliding
+window).
+
+`ParallelConfig` and `TrainConfig` are copies of the reference's, field
+for field. On one card the trainer reads `remat`, `microbatches` and
+`accum_dtype`; `seq_shard` is a sharding constraint, a no-op outside a
+mesh as in the reference, and `scan_layers` has no meaning for the
+port's loop over layers. The fields that need more than one card
+(`attn_mode="cp"`, `compress_pod_grads`, `sparse_embed`) make the
+trainer raise (`train.trainer.check_parallel`).
 
 The reference module's TPU hardware constants are deliberately not
 carried over; the port's speed figures come from runs on the card (see
@@ -151,3 +160,37 @@ def _mamba_block_params(cfg: ModelConfig) -> int:
     n = cfg.ssm_state
     g = max(1, cfg.resolved_ssm_heads // 4)
     return d * 2 * di + di * d + 2 * g * n * d + di  # in/out proj + B,C proj + dt
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """How the model maps onto the mesh."""
+
+    fsdp_axis: str = "data"          # DPMR dense face: params sharded here
+    tensor_axis: str = "model"       # TP / expert-parallel / feature-owner axis
+    dp_axes: tuple[str, ...] = ("pod", "data")
+    remat: str = "full"              # none | full | dots
+    scan_layers: bool = True
+    microbatches: int = 1            # grad-accumulation chunks per step
+    seq_shard: bool = True           # SP: residual stream sharded over model
+    accum_dtype: str = "float32"     # grad-accumulator dtype (bf16 on giants)
+    attn_mode: str = "auto"          # auto (GSPMD) | cp (context-parallel:
+    #                                  q sequence-sharded, kv-only gather)
+    moe_group: int = 512             # MoE group-limited dispatch group size
+    # DPMR sparse face for embedding tables
+    sparse_embed: bool = False
+    # gradient compression on the cross-pod DP axis
+    compress_pod_grads: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"         # sgd | momentum | adam | adamw
+    seed: int = 0

@@ -13,10 +13,21 @@ packages, up to f32 rounding.
 `params_from_numpy` takes the reference's dense params pytree as nested
 dicts of numpy arrays (layers stacked on a leading axis, as
 `repro.sharding.init_from_defs` makes them) and builds the port's
-`Transformer` on `device`; `params_to_numpy` goes the other way. Matrices
-are cast to `cfg.dtype` on the way in, as the reference casts them at
-every use, so the round trip is exact when `cfg.dtype` is float32 and
-rounds the matrices to `cfg.dtype` otherwise.
+`Transformer` on `device`; `params_to_numpy` goes the other way. For
+serving, matrices are cast to `cfg.dtype` on the way in, as the reference
+casts them at every use, so the round trip is exact when `cfg.dtype` is
+float32 and rounds the matrices to `cfg.dtype` otherwise; a model for
+training (`train=True`) keeps `cfg.param_dtype` and the round trip is
+exact.
+
+`train_state_from_numpy` and `train_state_to_numpy` carry the dense
+trainer's state, the reference's tree `{"params", "opt", "step"}`: the
+params as above, the optimizer's moments in trees of the params' shape
+(adam's `m` and `v`, momentum's `mu`) beside adam's `count`, and the
+step. `train_state_tree` is that tree over the live tensors (a stacked
+leaf as the list of its layers' tensors), and `tree_leaves` walks a tree
+in the reference's leaf order (`jax.tree.flatten` sorts dict keys), which
+is how `ckpt.checkpointer` writes a dense checkpoint.
 """
 from __future__ import annotations
 
@@ -66,12 +77,13 @@ def state_to_numpy(state: DPMRState, mesh=None) -> tuple[np.ndarray, ...]:
 
 
 def _pairs(model: transformer.Transformer):
-    """(path in the reference's tree, layer index or None, parameter)."""
+    """(name in `named_parameters`, path in the reference's tree, layer
+    index or None) of every parameter."""
     for i, layer in enumerate(model.layers):
-        for name, param in layer.named_parameters():
-            yield ("layers", *name.split(".")), i, param
-    for name, param in model.named_parameters(recurse=False):
-        yield (name,), None, param
+        for name, _ in layer.named_parameters():
+            yield f"layers.{i}.{name}", ("layers", *name.split(".")), i
+    for name, _ in model.named_parameters(recurse=False):
+        yield name, (name,), None
 
 
 def _get(tree, path):
@@ -80,35 +92,107 @@ def _get(tree, path):
     return tree
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig,
-                      device) -> transformer.Transformer:
-    """The port's model from the reference's params tree (copied)."""
+def _fill(model, tree: dict, values: dict, cfg: ModelConfig) -> None:
+    """Copy the reference-shaped numpy `tree` into `values` (name ->
+    tensor of `model`'s parameter names), checking every shape."""
     defs = transformer.transformer_defs(cfg)
-    model = transformer.Transformer(cfg, device=device)
     with torch.no_grad():
-        for path, i, param in _pairs(model):
+        for name, path, i in _pairs(model):
             leaf = np.asarray(_get(tree, path), dtype=np.float32)
             if leaf.shape != _get(defs, path):
                 raise ValueError(f"{'/'.join(path)}: shape {leaf.shape}, "
                                  f"{cfg.name} needs {_get(defs, path)}")
-            param.copy_(torch.tensor(leaf if i is None else leaf[i]))
+            values[name].copy_(torch.tensor(leaf if i is None else leaf[i]))
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device,
+                      train: bool = False) -> transformer.Transformer:
+    """The port's model from the reference's params tree (copied), for
+    serving or, with `train=True`, for training."""
+    model = transformer.Transformer(cfg, device=device, train=train)
+    _fill(model, tree, dict(model.named_parameters()), cfg)
     return model
+
+
+def params_tree(model: transformer.Transformer,
+                values: dict | None = None) -> dict:
+    """The reference's params tree over live tensors: `values` (name ->
+    tensor, default the model's parameters) at their paths, a stacked
+    leaf as the list of its layers' tensors in layer order."""
+    values = dict(model.named_parameters()) if values is None else values
+    tree: dict = {}
+    for name, path, i in _pairs(model):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if i is None:
+            node[path[-1]] = values[name]
+        else:
+            node.setdefault(path[-1], []).append(values[name])
+    return tree
+
+
+def _to_numpy(leaf, dtype=None) -> np.ndarray:
+    """A tensor, or a list of them stacked, as a host array of its own
+    (a copy, also of a CPU tensor), cast to `dtype` if given."""
+    if isinstance(leaf, list):
+        return np.stack([_to_numpy(t, dtype) for t in leaf])
+    return leaf.detach().to("cpu", dtype or leaf.dtype, copy=True).numpy()
+
+
+def _map(tree: dict, fn) -> dict:
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
 def params_to_numpy(model: transformer.Transformer) -> dict:
     """The model's parameters as the reference's tree of f32 numpy arrays,
     layers stacked on a leading axis."""
-    tree: dict = {}
-    per_layer: dict = {}
-    for path, i, param in _pairs(model):
-        arr = param.detach().to(torch.float32).cpu().numpy()
-        if i is None:
-            tree[path[0]] = arr
+    return _map(params_tree(model),
+                lambda leaf: _to_numpy(leaf, torch.float32))
+
+
+def train_state_tree(state: dict) -> dict:
+    """The trainer's state as the reference's tree over its live tensors
+    (`params_tree` for the params and each moment)."""
+    model = state["params"]
+    opt = {k: params_tree(model, v) if isinstance(v, dict) else v
+           for k, v in state["opt"].items()}
+    return {"params": params_tree(model), "opt": opt, "step": state["step"]}
+
+
+def tree_leaves(tree: dict, prefix: tuple = ()):
+    """(path, leaf) in `jax.tree.flatten`'s order: dict keys sorted at
+    every level."""
+    for key in sorted(tree):
+        node = tree[key]
+        if isinstance(node, dict):
+            yield from tree_leaves(node, (*prefix, key))
         else:
-            per_layer.setdefault(path, []).append(arr)
-    for path, arrs in per_layer.items():
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(arrs)
-    return tree
+            yield (*prefix, key), node
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The trainer's state as the reference's tree of numpy arrays."""
+    return _map(train_state_tree(state), _to_numpy)
+
+
+def train_state_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
+    """The trainer's state on `device` from the reference's tree of numpy
+    arrays (copied): the params in `cfg.param_dtype`, the moments in
+    `cfg.opt_dtype`, `count` and `step` 0-d int32."""
+    model = params_from_numpy(tree["params"], cfg, device, train=True)
+    opt = {}
+    for key, node in tree["opt"].items():
+        if isinstance(node, dict):
+            opt[key] = {name: torch.empty(p.shape,
+                                          dtype=getattr(torch, cfg.opt_dtype),
+                                          device=p.device)
+                        for name, p in model.named_parameters()}
+            _fill(model, node, opt[key], cfg)
+        else:
+            opt[key] = torch.tensor(np.asarray(node), dtype=torch.int32,
+                                    device=model.device)
+    step = torch.tensor(np.asarray(tree["step"]), dtype=torch.int32,
+                        device=model.device)
+    return {"params": model, "opt": opt, "step": step}

@@ -23,10 +23,10 @@ One loader owns everything between a `DataSource` and the training step:
                     `RankBatch`, what `DPMREngine` takes), "host" yields
                     numpy, or pass any callable(batch) -> batch
                     (`runtime.multiprocess.global_batch_placement` for a
-                    rank that reads only its own host's rows). The
-                    reference's "device" placement (whole leaves, for the
-                    dense trainer) comes with the dense trainer (ROADMAP
-                    A12).
+                    rank that reads only its own host's rows); "device"
+                    puts every leaf whole on the loader's device in its
+                    own dtype (the dense trainer's batches, as the
+                    reference's "device" placement).
   prefetch          a thread loads and places the next batches while the
                     consumer runs the step, into a bounded queue (default
                     depth 2). On the card each batch is staged in pinned
@@ -108,6 +108,16 @@ def to_device(v, device: torch.device, key: str) -> torch.Tensor:
     return t.to(device)
 
 
+def put_whole(v, device: torch.device) -> torch.Tensor:
+    """A host array whole on `device` in its own dtype, staged in pinned
+    memory and copied `non_blocking` on the current stream when bound
+    for the card (as `to_device`)."""
+    t = torch.as_tensor(np.asarray(v))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def put_sharded(batch: dict, device, mesh=None) -> RankBatch:
     """Host→device placement of this rank's rows of a GLOBAL batch dict:
     rows [r·B/P, (r+1)·B/P) on rank r of `mesh` (all of them without
@@ -166,9 +176,9 @@ class ShardedLoader:
     mesh:          torch DeviceMesh (`launch.mesh.make_host_mesh`); sets the
                    default batch divisor (its rank count P) and which rows
                    "sharded" placement keeps. None = one rank
-    device:        where "sharded" placement puts batches; None = the card
-                   (raises without one), "cpu" for the host
-    placement:     "sharded" | "host" | callable(batch) -> batch
+    device:        where "sharded" and "device" placement put batches;
+                   None = the card (raises without one), "cpu" for the host
+    placement:     "sharded" | "device" | "host" | callable(batch) -> batch
     host_index / num_hosts:
                    this process's slice of the batch stream; default this
                    rank of the default process group
@@ -212,7 +222,8 @@ class ShardedLoader:
         self.source_name = getattr(source, "name", type(source).__name__)
         self.mesh = mesh
         self.placement = placement
-        if placement not in ("sharded", "host") and not callable(placement):
+        if placement not in ("sharded", "device", "host") \
+                and not callable(placement):
             raise ValueError(f"unknown placement {placement!r}")
         self.device = None if placement == "host" else resolve_device(device)
         if self.device is not None and self.device.type == "cuda" \
@@ -571,6 +582,8 @@ class ShardedLoader:
             return self.placement(batch)
         if self.placement == "sharded":
             return put_sharded(batch, self.device, self.mesh)
+        if self.placement == "device":
+            return {k: put_whole(v, self.device) for k, v in batch.items()}
         return batch
 
     def _prefetched(self, plan: Iterator[tuple],

@@ -1,16 +1,37 @@
-"""Training entry point of the port's sparse face: the counterpart of
-`repro.launch.train --sparse` (`sparse_loop`), one process a rank.
+"""Training entry point of the port: the counterpart of
+`repro.launch.train`, for the dense face (`--arch`, one process on one
+card) and the sparse face (`--sparse`, one process a rank).
 
-    PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \
+        --smoke --steps 6 --device cpu --ckpt /tmp/dck     # dense, the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
+        --smoke --steps 50 --ckpt /tmp/dck                 # dense, the card
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \
         -m repro_torch.launch.train --sparse --device cpu     # 8 gloo ranks
-    PYTHONPATH=src torchrun --standalone --nproc-per-node 1 \\
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 1 \
         -m repro_torch.launch.train --sparse --ckpt /tmp/sck  # the card
-    # kill it mid-run and rerun the same command: it resumes from --ckpt
+    # kill either mid-run and rerun the same command: it resumes from --ckpt
 
-The data plane is the reference's (`--data-dir`, `--hosts`, `--host-id`,
-`--shuffle`, `--prefetch`, `--sparse-batches`): a `zipf_sparse` stream
-(`--data-seed`), or with `--data-dir` a `file_sparse` corpus under
-chunk-aligned ownership, behind a `ShardedLoader`.
+Dense mode (`train_loop`) wires the model zoo (`--arch`, `--smoke` for
+the reduced same-family config), the one-card trainer
+(`train.trainer.make_train_step`: `--optimizer`, `--lr`, `--warmup`,
+`--microbatches`), an `lm_markov` stream (`--batch` x `--seq` tokens,
+`--data-seed`) behind a prefetching `ShardedLoader` pinned to host 0 of
+1, checkpoints (`--ckpt`, `--save-every`, `--keep`, `--async-ckpt`) that
+carry the model, the optimizer and the loader's cursor, a
+`PreemptionGuard` (SIGTERM: save and stop; `--no-preemption-guard`) and
+a `StragglerWatchdog`. A rerun resumes from the newest checkpoint at the
+exact data position; under `runtime.fault_tolerance.run_with_restarts`
+a failed run restarts from it. It prints the reference's final line and
+one JSON line (losses, last step, straggler events, the md5 of the final
+params). More than one rank raises: the dense trainer over several cards
+is ROADMAP A12 (Distribution).
+
+Sparse mode's data plane is the reference's (`--data-dir`, `--hosts`,
+`--host-id`, `--shuffle`, `--prefetch`, `--sparse-batches`): a
+`zipf_sparse` stream (`--data-seed`), or with `--data-dir` a
+`file_sparse` corpus under chunk-aligned ownership, behind a
+`ShardedLoader`.
   * Under torchrun with W ranks, rank r IS data-plane host r of W, as
     process h is host h in the reference's real multi-process run: its
     loader reads only host r's batches of `--batch` rows, and the engine
@@ -28,15 +49,18 @@ reassigning shard ownership if the host count changed. Rank 0 prints one
 JSON line: the strategy, the losses, the two-tier wire bytes a rank
 receives a step, a float64 loss over a fixed raw batch, and the md5 of
 the final global table. It runs on the card (NCCL) unless `--device cpu`
-(gloo). The dense mode is ROADMAP A12.
+(gloo).
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
 import json
+import logging
+import os
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from repro_torch.api import (
@@ -46,10 +70,113 @@ from repro_torch.api import (
     get_strategy,
 )
 from repro_torch.ckpt.checkpointer import Checkpointer
-from repro_torch.configs.base import DPMRConfig
-from repro_torch.convert import state_to_numpy
+from repro_torch.configs.base import DPMRConfig, ParallelConfig, TrainConfig
+from repro_torch.convert import params_to_numpy, state_to_numpy, tree_leaves
+from repro_torch.data import Cursor
+from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import init_from_env, make_host_mesh
+from repro_torch.models import registry
 from repro_torch.runtime import multiprocess as mp
+from repro_torch.runtime.fault_tolerance import (
+    PreemptionGuard,
+    StragglerWatchdog,
+)
+from repro_torch.train import trainer
+
+log = logging.getLogger("repro_torch.train")
+
+DENSE_BATCH, SPARSE_BATCH = 8, 256    # --batch's default in each mode
+
+
+def make_loader(args, cfg, device) -> ShardedLoader:
+    """The dense trainer's data plane: an `lm_markov` source behind a
+    prefetching loader that puts whole batches on `device`, pinned to one
+    stream (host 0 of 1), as the reference's."""
+    source = get_source("lm_markov", vocab_size=cfg.vocab_size,
+                        seq_len=args.seq,
+                        batch_size=args.batch or DENSE_BATCH,
+                        seed=args.data_seed)
+    return ShardedLoader(source, device=device, placement="device",
+                         host_index=0, num_hosts=1, prefetch=args.prefetch)
+
+
+def params_md5(model) -> str:
+    """md5 of the params as the reference's tree of f32 arrays, leaves in
+    its order."""
+    h = hashlib.md5()
+    for _, leaf in tree_leaves(params_to_numpy(model)):
+        h.update(np.ascontiguousarray(leaf).tobytes())
+    return h.hexdigest()
+
+
+def train_loop(args, fail_injector=None, guard=None) -> dict:
+    """The dense training loop: train `args.arch` up to `args.steps` steps,
+    resuming from `args.ckpt`'s newest checkpoint. `fail_injector` (a
+    `FailureInjector`) may raise before a step; `guard` replaces the
+    `PreemptionGuard` the loop would install (tests trigger it)."""
+    device = resolve_device(args.device)
+    spec = registry.get_spec(args.arch)
+    cfg = registry.smoke_config(args.arch) if args.smoke else spec.cfg
+    tc = TrainConfig(learning_rate=args.lr, warmup_steps=args.warmup,
+                     total_steps=args.steps, optimizer=args.optimizer)
+    pc = ParallelConfig(microbatches=args.microbatches)
+    loader = make_loader(args, cfg, device)
+    ck = Checkpointer(args.ckpt, keep=args.keep) if args.ckpt else None
+    if guard is None and args.preemption_guard:
+        guard = PreemptionGuard()
+    watchdog = StragglerWatchdog()
+
+    state = trainer.init_state(
+        spec, cfg, tc, pc, torch.Generator(device=device).manual_seed(tc.seed),
+        device)
+    start_step = 0
+    if ck is not None and ck.latest_step() is not None:
+        state, manifest = ck.restore(state)
+        extra = manifest["extra"]
+        if "data" in extra:                      # cursor-carrying ckpt
+            loader.load_state_dict(extra["data"])
+            start_step = loader.cursor.step
+        else:                                    # pre-data-plane ckpt
+            start_step = extra["data_step"]
+            loader.seek(Cursor(0, start_step))
+        log.info("resumed from step %d", start_step)
+    step_fn = trainer.make_train_step(spec, cfg, tc, pc)
+
+    def save(step, block):
+        ck.save(step, state,
+                extra={"data_step": step, "data": loader.state_dict()},
+                block=block)
+
+    losses = []
+    i = start_step
+    try:
+        for batch in loader.batches(args.steps - start_step):
+            watchdog.step_start()
+            if fail_injector is not None:
+                fail_injector.maybe_fail(i)
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            watchdog.step_end(i)
+            i += 1
+            if args.log_every and i % args.log_every == 0:
+                log.info("step %d loss %.4f lr %.2e", i, loss,
+                         float(metrics["lr"]))
+            if ck is not None and (i % args.save_every == 0
+                                   or i == args.steps):
+                save(i, block=not args.async_ckpt)
+            if guard is not None and guard.preempted():
+                if ck is not None:
+                    save(i, block=True)
+                log.warning("preempted; saved at step %d", i)
+                break
+    finally:
+        # a failed step still lets the save in flight land, so a restart
+        # finds it
+        if ck is not None:
+            ck.wait()
+    return {"state": state, "losses": losses, "last_step": i,
+            "straggler_events": watchdog.events}
 
 
 def sparse_loop(args) -> dict:
@@ -62,7 +189,8 @@ def sparse_loop(args) -> dict:
         dist.destroy_process_group()
 
 
-def make_loader(args, mesh, device) -> tuple[ShardedLoader, object, int]:
+def make_sparse_loader(args, mesh,
+                       device) -> tuple[ShardedLoader, object, int]:
     """This rank's loader, the raw source the final eval reads, and the
     global batch size a step trains on."""
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -70,7 +198,8 @@ def make_loader(args, mesh, device) -> tuple[ShardedLoader, object, int]:
     if args.data_dir:
         source = get_source("file_sparse", directory=args.data_dir)
     else:
-        source = get_source("zipf_sparse", batch_size=args.batch,
+        source = get_source("zipf_sparse",
+                            batch_size=args.batch or SPARSE_BATCH,
                             num_batches=args.sparse_batches,
                             num_features=args.features,
                             features_per_sample=32, seed=args.data_seed)
@@ -108,7 +237,7 @@ def train_sparse(args, device) -> dict:
                      max_features_per_sample=32,
                      distribution=args.strategy, optimizer="adagrad",
                      learning_rate=args.lr)
-    loader, eval_source, global_rows = make_loader(args, mesh, device)
+    loader, eval_source, global_rows = make_sparse_loader(args, mesh, device)
     engine = DPMREngine(cfg, device=device, mesh=mesh)
     if args.ckpt and Checkpointer(args.ckpt).latest_step() is not None:
         # reassign rather than refuse when the host count changed between
@@ -152,19 +281,40 @@ def train_sparse(args, device) -> dict:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", help="model zoo id (dense face; required "
+                                   "unless --sparse)")
     ap.add_argument("--sparse", action="store_true",
-                    help="train the DPMR sparse face (the only mode ported)")
+                    help="train the DPMR sparse face (DPMREngine over a "
+                         "zipf_sparse loader) instead of a zoo model")
     ap.add_argument("--strategy", default="a2a",
-                    help="distribution strategy (any name in "
+                    help="sparse-face distribution strategy (any name in "
                          "repro_torch.api.list_strategies())")
     ap.add_argument("--features", type=int, default=1 << 14,
-                    help="hashed feature-space size")
-    ap.add_argument("--batch", type=int, default=256,
-                    help="rows a data-plane host reads a step (under "
+                    help="sparse-face hashed feature-space size")
+    ap.add_argument("--batch", type=int, default=None,
+                    help=f"rows a step: dense, the batch (default "
+                         f"{DENSE_BATCH}); sparse, the rows a data-plane "
+                         f"host reads (default {SPARSE_BATCH}; under "
                          "torchrun the global batch is ranks x --batch)")
     ap.add_argument("--steps", type=int, default=20,
                     help="train until the state's step reaches this")
     ap.add_argument("--lr", type=float, default=1e-2)
+    ap.add_argument("--smoke", action="store_true",
+                    help="dense: the reduced same-family config")
+    ap.add_argument("--seq", type=int, default=64,
+                    help="dense: tokens a sequence")
+    ap.add_argument("--warmup", type=int, default=10,
+                    help="dense: warmup steps of the cosine schedule "
+                         "(0 = a constant learning rate)")
+    ap.add_argument("--optimizer", default="adamw",
+                    help="dense: sgd | momentum | adam | adamw")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="dense: gradient-accumulation chunks a step")
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="dense: log the loss every N steps (0 = never)")
+    ap.add_argument("--preemption-guard",
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help="dense: on SIGTERM, save and stop")
     ap.add_argument("--sparse-batches", type=int, default=64,
                     help="zipf_sparse corpus size in batches (one epoch)")
     ap.add_argument("--data-seed", type=int, default=0)
@@ -196,21 +346,37 @@ def build_parser() -> argparse.ArgumentParser:
                     help="pods (the mesh's leading, slow tier)")
     ap.add_argument("--device", default=None,
                     help="torch device type (default: the card, NCCL; "
-                         "'cpu' for gloo)")
+                         "'cpu' for the host, gloo)")
     return ap
 
 
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.save_every < 1:
+        ap.error("--save-every must be >= 1")
     if not args.sparse:
-        ap.error("the dense trainer is not ported yet: ROADMAP A12 (pass "
-                 "--sparse)")
+        if not args.arch:
+            ap.error("--arch is required (or pass --sparse): a model zoo "
+                     "id of the dense or vlm family (the reference's other "
+                     "families are ROADMAP A12)")
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            ap.error("the dense trainer is one process on one card; over "
+                     "several ranks it is ROADMAP A12 (Distribution)")
+        logging.basicConfig(level=logging.INFO)
+        out = train_loop(args)
+        if out["losses"]:
+            print(f"final loss {out['losses'][-1]:.4f} after "
+                  f"{out['last_step']} steps")
+        summary = {"arch": args.arch, "losses": out["losses"],
+                   "last_step": out["last_step"],
+                   "straggler_events": out["straggler_events"],
+                   "params_md5": params_md5(out["state"]["params"])}
+        print(json.dumps(summary), flush=True)
+        return summary
     if args.hosts < 1 or not -1 <= args.host_id < args.hosts:
         ap.error(f"--host-id {args.host_id} is not a host of --hosts "
                  f"{args.hosts} (or -1 for all of them)")
-    if args.save_every < 1:
-        ap.error("--save-every must be >= 1")
     out = sparse_loop(args)
     if out["rank"] == 0:
         print(json.dumps(out), flush=True)

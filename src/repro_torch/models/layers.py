@@ -1,19 +1,25 @@
-"""Model layers of the port's serve path (`repro.models.layers`' subset).
+"""Model layers of the port (`repro.models.layers`' dense subset).
 
-Norms, RoPE, the attention projections, the MLPs, prefill's causal
-self-attention and decode's attention over the cache, as plain functions
-over tensors; `p` is the `nn.Module` that holds a block's parameters
-under the reference's names and layouts (`wq` (d, H, hd), `wo` (H, hd, d),
-`wi_gate`/`wi_up`/`wo` or `wi`/`wo`).
+Norms, RoPE, the attention projections, the MLPs, the blocked causal
+attention of training, prefill's causal self-attention and decode's
+attention over the cache, as plain functions over tensors; `p` is the
+`nn.Module` that holds a block's parameters under the reference's names
+and layouts (`wq` (d, H, hd), `wo` (H, hd, d), `wi_gate`/`wi_up`/`wo` or
+`wi`/`wo`).
 
-Numerics follow the reference's casts. Where it keeps an f32 product
-(`preferred_element_type=float32` with no cast after it: swiglu's gate
-and up products, decode's scores and its probabilities times V), the port
-takes `common.dot_f32`/`bmm_f32`; where it casts the f32 product back to
-the activation dtype (the projections, the MLP's output), a plain product
-in that dtype, which accumulates in f32 and rounds once. Prefill's
-attention is `kernels.ops.flash_attention`: the hand-written kernel on
-the card, its plain version on the CPU.
+Numerics follow the reference's casts. Each use casts a matrix to the
+activation dtype (the identity for a serving model, whose matrices are
+stored in it; a copy of a training model's f32 master). Where the
+reference keeps an f32 product (`preferred_element_type=float32` with no
+cast after it: swiglu's gate and up products, attention's scores and its
+probabilities times V), the port takes `common.dot_f32`/`bmm_f32`; where
+it casts the f32 product back to the activation dtype (the projections,
+the MLP's output), a plain product in that dtype, which accumulates in
+f32 and rounds once. Training's attention is `attention_block` over
+`blocked_causal_attention`, differentiated by autograd as the reference
+differentiates its jnp blocks (the Pallas kernel has no backward).
+Prefill's attention is `kernels.ops.flash_attention`: the hand-written
+kernel on the card, its plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common
+
+NEG_INF = -1e30
 
 # ---------------------------------------------------------------------------
 # norms and positions
@@ -96,6 +104,7 @@ def mlp_defs(cfg: ModelConfig) -> dict:
 
 def _project(x, w):
     """x (B, S, d) @ w (d, n, hd) -> (B, S, n, hd) in x's dtype."""
+    w = w.to(x.dtype)
     return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
                                                     *w.shape[1:])
 
@@ -117,7 +126,18 @@ def project_kv(p, x, cfg: ModelConfig):
 def project_out(p, attn_out):
     """attn_out (B, S, H, hd) @ wo (H, hd, d) -> (B, S, d)."""
     b, s = attn_out.shape[:2]
-    return attn_out.reshape(b, s, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+    wo = p.wo.to(attn_out.dtype)
+    return attn_out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _repeat_kv(k, n_rep: int):
+    """(B, S, KH, hd) -> (B, S, KH * n_rep, hd), each KV head repeated for
+    the n_rep query heads of its group."""
+    if n_rep == 1:
+        return k
+    b, s, kh, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kh, n_rep, hd).reshape(
+        b, s, kh * n_rep, hd)
 
 
 def _no_window(window: int) -> None:
@@ -125,6 +145,150 @@ def _no_window(window: int) -> None:
         raise NotImplementedError(
             f"sliding-window attention (window={window}) is not ported: "
             "SWA is mixtral's, an MoE model, ROADMAP A12")
+
+
+def _attn_block(q, k, v, m, l, acc, mask, scale):
+    """One online-softmax step of the reference's `_attn_block`, heads
+    first: q (B, H, qb, hd), k and v (B, H, kb, hd), m and l (B, H, qb)
+    f32, acc (B, H, qb, hd) f32 (the reference's (B, qb, H, hd), the same
+    numbers), mask (qb, kb) bool or None. Scores and the probabilities'
+    product with V are f32 products; the probabilities enter the second
+    product in v's dtype."""
+    b, h, qb, hd = q.shape
+    kb = k.shape[2]
+    s = common.bmm_f32(q.reshape(b * h, qb, hd),
+                       k.reshape(b * h, kb, hd).transpose(1, 2))
+    s = s.reshape(b, h, qb, kb) * scale
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + torch.sum(p, dim=-1)
+    pv = common.bmm_f32(p.to(v.dtype).reshape(b * h, qb, kb),
+                        v.reshape(b * h, kb, hd)).reshape(b, h, qb, hd)
+    return m_new, l_new, acc * corr[..., None] + pv
+
+
+def _finalize(acc, l):
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _causal_mask(q0, qn, k0, kn, device):
+    """The (qn, kn) mask of query positions q0.. against key positions
+    k0.., or None where every key is visible to every query (there the
+    reference's mask is all true and changes nothing)."""
+    if k0 + kn - 1 <= q0:
+        return None
+    qpos = torch.arange(q0, q0 + qn, device=device)
+    kpos = torch.arange(k0, k0 + kn, device=device)
+    return qpos[:, None] >= kpos[None, :]
+
+
+def _init_carry(q, q_block):
+    b, h, _, hd = q.shape
+    m = torch.full((b, h, q_block), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, q_block), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, q_block, hd), dtype=torch.float32,
+                      device=q.device)
+    return m, l, acc
+
+
+def _triangular_attention(q, k, v, q_block, kv_block, scale):
+    """Unrolled q blocks; q block i sees kv[0 : (i+1) * q_block], in
+    kv blocks of `kv_block` and a remainder block."""
+    sq = q.shape[2]
+    outs = []
+    for i in range(sq // q_block):
+        qs = i * q_block
+        qi = q[:, :, qs:qs + q_block]
+        extent = qs + q_block
+        kb = min(kv_block, extent)
+        n_kv = extent // kb
+        starts = [(j * kb, kb) for j in range(n_kv)]
+        if extent - n_kv * kb:
+            starts.append((n_kv * kb, extent - n_kv * kb))
+        m, l, acc = _init_carry(q, q_block)
+        for k0, kn in starts:
+            mask = _causal_mask(qs, q_block, k0, kn, q.device)
+            m, l, acc = _attn_block(qi, k[:, :, k0:k0 + kn],
+                                    v[:, :, k0:k0 + kn], m, l, acc, mask,
+                                    scale)
+        outs.append(_finalize(acc, l))
+    return torch.cat(outs, dim=2)
+
+
+def _masked_scan_attention(q, k, v, q_block, kv_block, scale):
+    """Every q block against every kv block, with the causal mask (the
+    reference's scan, which tolerates the masked blocks' waste; like it,
+    keys past the last whole kv block are not seen)."""
+    sq = q.shape[2]
+    kv_block = min(kv_block, sq)
+    outs = []
+    for iq in range(sq // q_block):
+        qs = iq * q_block
+        qi = q[:, :, qs:qs + q_block]
+        m, l, acc = _init_carry(q, q_block)
+        for ik in range(sq // kv_block):
+            k0 = ik * kv_block
+            mask = _causal_mask(qs, q_block, k0, kv_block, q.device)
+            m, l, acc = _attn_block(qi, k[:, :, k0:k0 + kv_block],
+                                    v[:, :, k0:k0 + kv_block], m, l, acc,
+                                    mask, scale)
+        outs.append(_finalize(acc, l))
+    return torch.cat(outs, dim=2)
+
+
+def blocked_causal_attention(q, k, v, *, window: int = 0,
+                             q_block: int = 1024, kv_block: int = 1024,
+                             unroll_limit: int = 64):
+    """Causal attention, O(S * block) memory per step, differentiable:
+    q (B, S, H, hd), k and v (B, S, KH, hd) with H % KH == 0 ->
+    (B, S, H, hd) in q's dtype, scaled by 1/sqrt(hd).
+
+    The reference's schedules and block sizes: the unrolled triangular
+    schedule when there are at most `unroll_limit` q blocks, else every
+    q block against every kv block under the mask. An S that `q_block`
+    does not divide is one q block. The port computes heads first (one
+    transposed copy of q, k and v) so that each block's products are
+    batched over (B, H)."""
+    _no_window(window)
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    k = _repeat_kv(k, h // kh)
+    v = _repeat_kv(v, h // kh)
+    scale = 1.0 / math.sqrt(hd)
+    q_block = min(q_block, sq)
+    if sq % q_block:
+        q_block = sq
+    n_q = sq // q_block
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if n_q <= unroll_limit:
+        out = _triangular_attention(qt, kt, vt, q_block, kv_block, scale)
+    else:
+        out = _masked_scan_attention(qt, kt, vt, q_block, kv_block, scale)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attention_block(p, x, cfg: ModelConfig, tables, *,
+                    attn_mode: str = "auto"):
+    """Causal self-attention block of training: projections, RoPE, the
+    blocked attention and the output projection. `tables` are RoPE's
+    (sin, cos) for the sequence's positions (`rope_tables`; None without
+    RoPE). `attn_mode="cp"` (context parallel) needs a mesh: ROADMAP A12
+    (Distribution)."""
+    if attn_mode == "cp":
+        raise NotImplementedError(
+            "attn_mode='cp' (context-parallel attention) needs a mesh of "
+            "cards: ROADMAP A12 (Distribution)")
+    q = project_q(p, x, cfg)
+    k, v = project_kv(p, x, cfg)
+    if tables is not None:
+        sin, cos = tables
+        q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+    out = blocked_causal_attention(q, k, v, window=cfg.sliding_window)
+    return project_out(p, out)
 
 
 def causal_self_attention(q, k, v, *, window: int = 0):
@@ -168,12 +332,19 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
 def mlp_block(p, x, cfg: ModelConfig):
     """swiglu: silu(x wi_gate) * (x wi_up), both products f32, or gelu (the
     reference's tanh approximation) of the f32 product x wi; the hidden
-    state is cast to x's dtype before `wo`. The f32 intermediates are
-    updated in place, which keeps one (B, S, d_ff) f32 buffer fewer live."""
+    state is cast to x's dtype before `wo`. With grad off (serving) the
+    f32 intermediates are updated in place, which keeps one (B, S, d_ff)
+    f32 buffer fewer live; under autograd the same arithmetic runs out of
+    place, since silu's backward reads its input."""
+    dt = x.dtype
     if cfg.mlp_type == "swiglu":
-        g = common.dot_f32(x, p.wi_gate)
-        u = common.dot_f32(x, p.wi_up)
-        h = F.silu(g, inplace=True).mul_(u).to(x.dtype)
+        g = common.dot_f32(x, p.wi_gate.to(dt))
+        u = common.dot_f32(x, p.wi_up.to(dt))
+        if torch.is_grad_enabled() and g.requires_grad:
+            h = (F.silu(g) * u).to(dt)
+        else:
+            h = F.silu(g, inplace=True).mul_(u).to(dt)
     else:
-        h = F.gelu(common.dot_f32(x, p.wi), approximate="tanh").to(x.dtype)
-    return h @ p.wo
+        h = F.gelu(common.dot_f32(x, p.wi.to(dt)),
+                   approximate="tanh").to(dt)
+    return h @ p.wo.to(dt)

@@ -1,7 +1,7 @@
-"""Architecture registry of the port: arch id -> params, prefill, decode
-(counterpart of `repro.models.registry`, for the ported families).
+"""Architecture registry of the port: arch id -> params, forward, prefill,
+decode (counterpart of `repro.models.registry`, for the ported families).
 
-The port serves the `dense` and `vlm` families through
+The port trains and serves the `dense` and `vlm` families through
 `models.transformer`; `configs.get_config` raises for the others.
 """
 from __future__ import annotations
@@ -18,10 +18,17 @@ from repro_torch.models import transformer
 class ArchSpec:
     arch_id: str
     cfg: ModelConfig
-    model: Callable               # (cfg, device) -> uninitialised nn.Module
+    model: Callable               # (cfg, device, train=False) ->
+    #                               uninitialised nn.Module
+    forward: Callable             # (model, batch, cfg, parallel) -> (logits,
+    #                               aux)
     prefill: Callable             # (model, batch, cfg) -> (logits, cache)
     decode_step: Callable         # (model, cache, tokens, cfg) -> (logits,
     #                               cache)
+
+
+def _lm_forward(model, batch, cfg, parallel=None):
+    return transformer.forward(model, batch["tokens"], cfg, parallel)
 
 
 def _lm_prefill(model, batch, cfg):
@@ -29,8 +36,8 @@ def _lm_prefill(model, batch, cfg):
 
 
 _FAMILY = {
-    "dense": dict(model=transformer.Transformer, prefill=_lm_prefill,
-                  decode_step=transformer.decode_step),
+    "dense": dict(model=transformer.Transformer, forward=_lm_forward,
+                  prefill=_lm_prefill, decode_step=transformer.decode_step),
 }
 _FAMILY["vlm"] = _FAMILY["dense"]
 

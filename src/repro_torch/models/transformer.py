@@ -1,12 +1,22 @@
-"""Decoder-only transformer, serve path (counterpart of
-`repro.models.transformer`): the dense family, and chameleon (vlm) with
-qk-norm.
+"""Decoder-only transformer (counterpart of `repro.models.transformer`):
+the dense family, and chameleon (vlm) with qk-norm.
 
 `Transformer` holds the parameters as `nn.Module`s, one `DecoderLayer`
 per layer, under the reference's names and layouts (`attn.wq`,
 `mlp.wi_gate`, `ln1`, ..., `embed`, `ln_f`, `unembed`); the reference
 stacks the layers on a leading axis for `lax.scan`, the port loops over
-them (`convert` carries a stacked numpy tree either way).
+them (`convert` carries a stacked numpy tree either way). Built with
+`train=True` it keeps f32 masters that require grad
+(`common.add_params`).
+
+`forward` is training's forward, `transformer.forward`: logits (B, S,
+V_pad) f32 and the aux loss, differentiable. `ParallelConfig.remat`
+maps onto `torch.utils.checkpoint` a layer at a time ("full" saves only
+a layer's input, "dots" also the outputs of `aten.mm`, the counterpart
+of `checkpoint_dots_with_no_batch_dims`, "none" is plain autograd);
+`scan_layers` has no meaning for a loop and is ignored, and
+`seq_shard`'s sharding constraint is a no-op outside a mesh, as in the
+reference.
 
 `prefill` and `decode_step` follow `transformer.prefill` and
 `transformer.decode_step`. The KV cache has the reference's layout
@@ -18,10 +28,13 @@ masked update, which gives the same values).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common, layers
 
@@ -40,35 +53,37 @@ def _ported(cfg: ModelConfig) -> None:
 
 
 class _Params(nn.Module):
-    def __init__(self, defs: dict, cfg: ModelConfig, device=None):
+    def __init__(self, defs: dict, cfg: ModelConfig, device, train: bool):
         super().__init__()
-        common.add_params(self, defs, cfg, device)
+        common.add_params(self, defs, cfg, device, train)
 
 
 class DecoderLayer(nn.Module):
     """Pre-norm block: attention and MLP, each behind an RMS norm."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, train: bool = False):
         super().__init__()
-        self.attn = _Params(layers.attn_defs(cfg), cfg, device)
-        self.mlp = _Params(layers.mlp_defs(cfg), cfg, device)
+        self.attn = _Params(layers.attn_defs(cfg), cfg, device, train)
+        self.mlp = _Params(layers.mlp_defs(cfg), cfg, device, train)
         common.add_params(self, {"ln1": (cfg.d_model,),
-                                 "ln2": (cfg.d_model,)}, cfg, device)
+                                 "ln2": (cfg.d_model,)}, cfg, device, train)
 
 
 class Transformer(nn.Module):
     """Parameters of a decoder-only LM on `device` (default: the card;
     raises without one unless `device="cpu"`), uninitialised until
-    `common.init_params` or `convert.params_from_numpy` fills them."""
+    `common.init_params` or `convert.params_from_numpy` fills them; for
+    serving, or with `train=True` for training (f32 masters that require
+    grad)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, train: bool = False):
         super().__init__()
         _ported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device, train)
                                     for _ in range(cfg.num_layers))
-        common.add_params(self, common.embed_defs(cfg), cfg, device)
+        common.add_params(self, common.embed_defs(cfg), cfg, device, train)
 
     @property
     def device(self) -> torch.device:
@@ -113,6 +128,59 @@ def _rope(q, k, tables):
         return q, k
     sin, cos = tables
     return layers.apply_rope(q, sin, cos), layers.apply_rope(k, sin, cos)
+
+
+def decoder_layer(lp, x, cfg: ModelConfig, tables,
+                  attn_mode: str = "auto"):
+    """x (B, S, D) -> ((B, S, D), aux): the pre-norm residual block of
+    training. `tables` are RoPE's (sin, cos) for the sequence's positions
+    (`_rope_tables`, None without RoPE); aux, the MoE load-balance loss,
+    is 0 for a dense layer."""
+    h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
+    x = x + layers.attention_block(lp.attn, h, cfg, tables,
+                                   attn_mode=attn_mode)
+    x = _ffn_half(lp, x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _save_mm(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for remat="dots": keep the
+    outputs of the products without batch dims, recompute the rest."""
+    if op.overloadpacket is torch.ops.aten.mm:
+        return checkpoint.CheckpointPolicy.MUST_SAVE
+    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(layer_fn, remat: str):
+    if remat == "none":
+        return layer_fn
+    if remat == "full":
+        return functools.partial(checkpoint.checkpoint, layer_fn,
+                                 use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint.checkpoint, layer_fn, use_reentrant=False,
+            context_fn=functools.partial(
+                checkpoint.create_selective_checkpoint_contexts, _save_mm))
+    raise ValueError(f"unknown remat {remat!r}: none | full | dots")
+
+
+def forward(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+            parallel: ParallelConfig | None = None):
+    """Training's forward: tokens (B, S) int -> (logits (B, S, V_pad) f32,
+    aux 0-d f32), differentiable with respect to the model's parameters,
+    each layer under `parallel.remat`."""
+    parallel = parallel or ParallelConfig()
+    layer = _remat(decoder_layer, parallel.remat)
+    x = common.embed_tokens(model.embed, tokens, cfg)
+    tables = _rope_tables(torch.arange(tokens.shape[1], dtype=torch.int32,
+                                       device=x.device), cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in model.layers:
+        x, a = layer(lp, x, cfg, tables, parallel.attn_mode)
+        aux = aux + a
+    x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
+    return common.lm_head(model.unembed_table(), x, cfg), aux
 
 
 def _ffn_half(lp, x, cfg: ModelConfig):

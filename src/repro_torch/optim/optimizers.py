@@ -1,9 +1,17 @@
-"""DPMR sparse-face optimizers: the counterpart of the `SPARSE_OPTIMIZERS`
-registry in `repro.optim.optimizers` (the dense optimizers come with the
-dense face).
+"""Optimizers of the port: the counterpart of `repro.optim.optimizers`,
+its dense optimizers and its `SPARSE_OPTIMIZERS` registry.
 
-The engine carries exactly one auxiliary array per parameter table
-(`DPMRState.cold_acc` / `hot_acc`). A sparse optimizer is a
+Dense optimizers (`OPTIMIZERS`: sgd, momentum, adam, adamw) work on the
+trainer's parameters as a dict name -> tensor (`named_parameters()`
+order) and keep their moments in dicts under the same names, in
+`opt_dtype`, beside adam's `count` (0-d int32 on the parameters'
+device). `update(grads, state, params, lr, cfg)` runs the reference's
+f32 operations in its order and writes the parameters and the state IN
+PLACE under `torch.no_grad()` (the reference returns new arrays from
+donated buffers); it returns `(params, state)`.
+
+The sparse engine carries exactly one auxiliary array per parameter
+table (`DPMRState.cold_acc` / `hot_acc`). A sparse optimizer is a
 `(theta, acc, grad, lr, cfg) -> (theta, acc)` update. Where the reference
 returns new arrays from donated buffers, the port updates `theta` and
 `acc` IN PLACE under `torch.no_grad()` and returns the same tensors: at
@@ -17,6 +25,109 @@ from collections.abc import Callable
 from typing import NamedTuple
 
 import torch
+
+
+class Optimizer(NamedTuple):
+    init: Callable           # (params, opt_dtype) -> state
+    update: Callable         # (grads, state, params, lr, cfg) -> (params,
+    #                          state), in place
+
+
+def _zeros_like(params: dict, opt_dtype: str) -> dict:
+    return {name: torch.zeros(p.shape, dtype=getattr(torch, opt_dtype),
+                              device=p.device)
+            for name, p in params.items()}
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """sqrt of the sum of every leaf's f32 sum of squares (0-d f32)."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in tree.values()))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: dict, max_norm: float):
+    """Scale the gradients IN PLACE by min(1, max_norm / norm); returns
+    (grads, norm before clipping)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    for g in grads.values():
+        g.mul_(scale)
+    return grads, norm
+
+
+# --- SGD / momentum ---------------------------------------------------------
+
+
+@torch.no_grad()
+def _sgd_update(grads, state, params, lr, cfg):
+    for name, p in params.items():
+        p.copy_(p.to(torch.float32) - lr * grads[name].to(torch.float32))
+    return params, state
+
+
+@torch.no_grad()
+def _momentum_update(grads, state, params, lr, cfg):
+    for name, p in params.items():
+        m = state["mu"][name]
+        m.copy_(cfg.beta1 * m.to(torch.float32)
+                + grads[name].to(torch.float32))
+        p.copy_(p.to(torch.float32) - lr * m.to(torch.float32))
+    return params, state
+
+
+# --- Adam / AdamW -----------------------------------------------------------
+
+
+def _adam_init(params, opt_dtype):
+    device = next(iter(params.values())).device
+    return {"m": _zeros_like(params, opt_dtype),
+            "v": _zeros_like(params, opt_dtype),
+            "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+@torch.no_grad()
+def _adamw_update(grads, state, params, lr, cfg,
+                  weight_decay: float | None = None):
+    wd = cfg.weight_decay if weight_decay is None else weight_decay
+    state["count"] += 1
+    b1, b2 = cfg.beta1, cfg.beta2
+    count = state["count"].to(torch.float32)
+    bc1 = 1.0 - b1 ** count
+    bc2 = 1.0 - b2 ** count
+    for name, p in params.items():
+        m, v = state["m"][name], state["v"][name]
+        g32 = grads[name].to(torch.float32)
+        m32 = b1 * m.to(torch.float32) + (1 - b1) * g32
+        v32 = b2 * v.to(torch.float32) + (1 - b2) * g32 * g32
+        step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + 1e-8)
+        p32 = p.to(torch.float32)
+        if wd:
+            step = step + wd * p32
+        p.copy_(p32 - lr * step)
+        m.copy_(m32)
+        v.copy_(v32)
+    return params, state
+
+
+def _adam_update(grads, state, params, lr, cfg):
+    return _adamw_update(grads, state, params, lr, cfg, weight_decay=0.0)
+
+
+OPTIMIZERS = {
+    "sgd": Optimizer(lambda p, od: {}, _sgd_update),
+    "momentum": Optimizer(lambda p, od: {"mu": _zeros_like(p, od)},
+                          _momentum_update),
+    "adam": Optimizer(_adam_init, _adam_update),
+    "adamw": Optimizer(_adam_init, _adamw_update),
+}
+
+
+def get_optimizer(name: str) -> Optimizer:
+    return OPTIMIZERS[name]
+
+
+# --- DPMR sparse-face optimizers --------------------------------------------
 
 
 class SparseOptimizer(NamedTuple):

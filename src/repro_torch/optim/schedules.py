@@ -30,6 +30,15 @@ def warmup_cosine(lr: float, warmup_steps: int, total_steps: int,
     return fn
 
 
+def get_schedule(cfg):
+    """The dense trainer's schedule from a `TrainConfig`: warmup_cosine
+    when it has warmup steps, else constant."""
+    if cfg.warmup_steps:
+        return warmup_cosine(cfg.learning_rate, cfg.warmup_steps,
+                             cfg.total_steps)
+    return constant(cfg.learning_rate)
+
+
 def _warmup_cosine_checked(lr, warmup_steps=0, total_steps=0):
     if total_steps <= warmup_steps:
         raise ValueError(

@@ -825,3 +825,133 @@ def test_serve_fresh_lookup_reads_no_device_value(cuda):
         torch.cuda.set_sync_debug_mode(0)
     m = cache.metrics.snapshot()
     assert m["cache_refreshes"] == 1 and m["cache_hits"] == 6
+
+
+# ---------------------------------------------------------------------------
+# the dense trainer on the card
+# ---------------------------------------------------------------------------
+
+
+def _smoke_train(arch, dtype):
+    import dataclasses
+
+    from repro_torch.models import registry
+
+    spec = registry.get_spec(arch)
+    return spec, dataclasses.replace(registry.smoke_config(arch),
+                                     dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [((64, 48), (48, 80)),
+                                   ((3, 16, 32), (3, 32, 8))])
+def test_f32_result_product_backward_on_the_card(cuda, shape):
+    """`common.dot_f32`/`bmm_f32` of bf16 operands keep an f32 result on
+    the card (`torch.mm(..., out_dtype=float32)`, which has no backward of
+    its own) and differentiate through `common._MmF32`: the forward equals
+    the f32 product of the same bf16 values within f32 rounding, the
+    gradients the bf16 products of the bf16-rounded cotangent."""
+    from repro_torch.models import common
+
+    rng = np.random.default_rng(len(shape[0]))
+    a, b = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            .to(torch.bfloat16) for s in shape)
+    g = torch.from_numpy(rng.normal(size=(*shape[0][:-1],
+                                          shape[1][-1])).astype(np.float32))
+    fn = common.dot_f32 if len(shape[0]) == 2 else common.bmm_f32
+    ga, gb = a.to(cuda).requires_grad_(), b.to(cuda).requires_grad_()
+    out = fn(ga, gb)
+    da, db = torch.autograd.grad(out, (ga, gb), g.to(cuda))
+    assert out.dtype == torch.float32 and da.dtype == torch.bfloat16
+    want = torch.matmul(a.float(), b.float())
+    torch.testing.assert_close(out.cpu(), want, atol=1e-5, rtol=1e-5)
+    gb16 = g.to(torch.bfloat16)
+    torch.testing.assert_close(da.cpu(), (gb16 @ b.transpose(-1, -2)),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(db.cpu(), (a.transpose(-1, -2) @ gb16),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_steps_on_the_card_match_the_cpu(cuda, dtype):
+    """3 adamw steps of yi-6b at smoke size from the same state on the
+    card and on the CPU: losses within 1e-4 (f32) or 2^-8 relative
+    (bf16), and the card's remat modes bit-identical to each other."""
+    from repro_torch import convert
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.data import get_source
+    from repro_torch.train import trainer
+
+    spec, cfg = _smoke_train("yi-6b", dtype)
+    tc = TrainConfig(learning_rate=1e-2, warmup_steps=0)
+    src = get_source("lm_markov", vocab_size=cfg.vocab_size, seq_len=64,
+                     batch_size=4, seed=1)
+    batches = [src.batch(i) for i in range(3)]
+    cpu = trainer.init_state(spec, cfg, tc, ParallelConfig(),
+                             torch.Generator().manual_seed(0), "cpu")
+    tree = convert.train_state_to_numpy(cpu)
+    runs = {}
+    for tag, device, remat in (("cpu", "cpu", "full"),
+                               ("full", cuda, "full"),
+                               ("dots", cuda, "dots"),
+                               ("none", cuda, "none")):
+        pc = ParallelConfig(remat=remat)
+        state = convert.train_state_from_numpy(tree, cfg, device)
+        step = trainer.make_train_step(spec, cfg, tc, pc)
+        losses = []
+        for b in batches:
+            state, m = step(state, {k: torch.from_numpy(v).to(device)
+                                    for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        runs[tag] = (losses, convert.params_to_numpy(state["params"]))
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -8
+    np.testing.assert_allclose(runs["full"][0], runs["cpu"][0], rtol=tol,
+                               atol=tol)
+    for remat in ("dots", "none"):
+        losses, params = runs[remat]
+        assert losses == runs["full"][0]
+        for (_, x), (_, y) in zip(convert.tree_leaves(params),
+                                  convert.tree_leaves(runs["full"][1]),
+                                  strict=True):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.gpu
+def test_dense_async_save_holds_the_pre_step_bits_on_the_card(cuda,
+                                                              tmp_path):
+    """A dense train state saved with block=False, then stepped at once:
+    the checkpoint holds the pre-step params and moments (the copies run
+    on the step's stream before its in-place updates)."""
+    from repro_torch import convert
+    from repro_torch.ckpt.checkpointer import Checkpointer
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.data import get_source
+    from repro_torch.train import trainer
+
+    spec, cfg = _smoke_train("granite-8b", "float32")
+    tc, pc = TrainConfig(learning_rate=1e-2, warmup_steps=0), \
+        ParallelConfig()
+    src = get_source("lm_markov", vocab_size=cfg.vocab_size, seq_len=32,
+                     batch_size=4, seed=2)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in src.batch(0).items()}
+    state = trainer.init_state(spec, cfg, tc, pc,
+                               torch.Generator(device=cuda).manual_seed(0),
+                               cuda)
+    step = trainer.make_train_step(spec, cfg, tc, pc)
+    state, _ = step(state, batch)
+    want = convert.train_state_to_numpy(state)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, state, block=False)
+    state, _ = step(state, batch)
+    ck.wait()
+    like = trainer.init_state(spec, cfg, tc, pc,
+                              torch.Generator(device=cuda).manual_seed(1),
+                              cuda)
+    got, manifest = ck.restore(like)
+    assert manifest["step"] == 1
+    for (pa, x), (pb, y) in zip(
+            convert.tree_leaves(convert.train_state_to_numpy(got)),
+            convert.tree_leaves(want), strict=True):
+        assert pa == pb
+        np.testing.assert_array_equal(x, y)

@@ -600,8 +600,9 @@ def test_launch_train_ranks_are_hosts_as_in_the_reference(launched):
     (["--sparse", "--save-every", "0"], "--save-every must be"),
     (["--strategy", "a2a"], "ROADMAP A12")])
 def test_launch_train_refuses_what_is_not_ported(argv, names, capsys):
-    """The dense mode is not ported; host flags that name no host, and a
-    save interval below 1, are refused before any group starts."""
+    """The dense mode needs an --arch of a ported family (the others are
+    ROADMAP A12); host flags that name no host, and a save interval below
+    1, are refused before any group starts."""
     from repro_torch.launch import train
 
     with pytest.raises(SystemExit):
