@@ -138,7 +138,8 @@ Phases, in order; any failure exits non-zero:
               counters set to 0 just before and read just after (the
               path reaches none of the four kernels): step ms, tokens/s,
               model TFLOP/s and its share of the bf16 peak, peak memory,
-              the losses (finite, step 10 below step 1), a profiled
+              the losses (finite; the first batch's cross-entropy after
+              step 10 below step 1's), a profiled
               window of 2 steps (idle share, top device operations);
               (b) one sgd step at 1 layer, 1 x 256, on the card and on
               the CPU from the same params (convert); (c) at 1 layer and
@@ -149,6 +150,39 @@ Phases, in order; any failure exits non-zero:
               at step 18, each against an uninterrupted 30-step run (and a
               second uninterrupted run against the first). Its files
               under build/ are deleted at the end
+  14. moe     the MoE family and the sliding window, each model freed
+              before the next is built: (a) configuration 10,
+              phi3.5-moe at full width cut to 16 layers (bf16, weights
+              from a torch.Generator seeded 0): flash_attention held to
+              its plain version on layer 0's q, k, v at (8, 4096) (GQA
+              group 4) and timed beside its plain version and SDPA; then
+              greedy_decode batch 8 x prompt 4096, 32 steps, counted
+              (flash_attention 16 launches, all in prefill), prefill and
+              decode steps timed alone, profiled windows, and the share
+              of (token, slot) pairs dropped at prefill and over 31
+              decode steps; (b) one layer of phi3.5-moe at full width, 2 x
+              512, card vs CPU: in f32 (TF32 off) layer 0's experts,
+              capacity positions and kept pairs equal except at near ties
+              (top-k margin < 1e-5), the training forward's logits within
+              1e-4 of each row's scale (prefill's kernel takes bf16 only),
+              the aux within 1e-5; in bf16 the share of tokens given the
+              same experts (at least 0.95), and for the tokens routed
+              alike the forward's and prefill's last logits, and the aux,
+              within 2e-2; (c) configuration
+              11, phi3.5-moe cut to 2 layers (1 if the peak passes 75
+              GiB), batch 4 x 4096 of lm_markov, adamw lr 3e-4 warmup 2,
+              remat full, 10 steps as in 13(a), the model FLOPs from the
+              active parameters, the aux each step; one sgd step at 1
+              layer, 1 x 256, in f32 activations, card vs CPU as 13(b);
+              (d) configuration 12, mixtral-8x22b at full width cut to 8
+              layers, batch 2 x prompt 8192 (twice the window, so the
+              ring is aligned), 32 steps, as (a) with no flash_attention
+              launch (the window takes the blocked attention); then the
+              ring check: decode_attention over a ring of 4096 slots for
+              32 steps past 8192 seeded bf16 positions at mixtral's
+              attention widths, each step within 2e-2 * (1 + |ref|) of
+              blocked_causal_attention(window=4096) over the whole
+              sequence
 Then one `{"kernels": [...]}` line, and last the device line
 `{"ok": true, "device": {...}}`. Measurements also go to
 results/chip_smoke.json.
@@ -262,8 +296,11 @@ def kernel_and_call_ms(torch, fn, names, iters=50, counts=None):
     3 traces in all, and the last is kept (on the H100 a trace has come
     back without the kernels it timed, and one has lost one launch of 20;
     an operation that a function runs on only some calls counts a
-    fraction in every trace). If no trace saw the kernels, the device ms
-    is `events_ms`, and the log says so."""
+    fraction in every trace). If the kept trace saw a fractional number
+    of launches of the named kernels a call, their time is scaled to the
+    nearest whole number of launches (one trace late in a run on the
+    H100 saw 13 of 20). If no trace saw the kernels, the device ms is
+    `events_ms`, and the log says so."""
     for attempt in range(3):
         got = {}
         dev = device_times(torch, fn, counts=got)
@@ -275,6 +312,15 @@ def kernel_and_call_ms(torch, fn, names, iters=50, counts=None):
         log(f"[timing] trace {attempt + 1} of {names or 'every kernel'}: "
             + (f"a call counts {json.dumps(lost)}" if ms > 0
                else "no device time"))
+    named = sum(c for k, c in got.items() if names
+                and any(n in k for n in names))
+    if 0 < named and round(named) != named:
+        # the last trace still lost launches of the named kernels: their
+        # time over the launches it saw, times the launches a call makes
+        whole = max(round(named), 1)
+        log(f"[timing] {names}: the trace saw {named} launches a call; "
+            f"device ms scaled by {whole} / {named}")
+        ms *= whole / named
     if counts is not None:
         counts.clear()
         counts.update(got)
@@ -2808,42 +2854,49 @@ def profile_window(torch, fn, n, tag):
             "idle_share": 1 - busy / wall_ms, "top": top}
 
 
-def phase_serve(torch, dev, spec, cfg, model, results):
-    """The dense main path: greedy_decode of yi-6b at full width and depth,
-    batch 8 x 4096, 32 steps, counted; then its parts timed alone."""
+def serve_run(torch, dev, spec, cfg, model, batch, prompt, phase="serve",
+              label=""):
+    """greedy_decode of `model`, batch x prompt (numpy seed 0), 32 steps,
+    with the launch counters set to 0 just before and read just after
+    (flash_attention once per layer of the prefill, or never under a
+    sliding window); then prefill and each decode step timed alone, a
+    profiled window of decode steps and a profiled prefill (tagged
+    `label`)."""
     from repro_torch.kernels import ops
     from repro_torch.train import serve
 
-    batch = {"tokens": prompts(cfg, SERVE_BATCH, PROMPT)}
+    arch = spec.arch_id
+    want_fa = 0 if cfg.sliding_window else cfg.num_layers
+    toks_np = prompts(cfg, batch, prompt)
     # warm-up: cuBLAS handles and workspaces, the allocator's pools
-    serve.greedy_decode(spec, cfg, model, batch, 2, device=dev)
+    serve.greedy_decode(spec, cfg, model, {"tokens": toks_np}, 2, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t = time.perf_counter()
-    toks = serve.greedy_decode(spec, cfg, model, batch, DECODE_STEPS,
-                               device=dev)
+    toks = serve.greedy_decode(spec, cfg, model, {"tokens": toks_np},
+                               DECODE_STEPS, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] {ARCH} {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    log(f"[{phase}] {arch} {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.param_count() / 1e9:.4f} B params: greedy_decode batch "
-        f"{SERVE_BATCH} x prompt {PROMPT}, {DECODE_STEPS} steps in "
-        f"{wall:.4f} s ({SERVE_BATCH * DECODE_STEPS / wall:.2f} generated "
-        f"tok/s); max_memory_allocated {peak / 2 ** 30:.3f} GiB "
-        f"({peak} B); launches {counts}")
-    require(tuple(toks.shape) == (SERVE_BATCH, DECODE_STEPS)
+        f"{batch} x prompt {prompt}, {DECODE_STEPS} steps in {wall:.4f} s "
+        f"({batch * DECODE_STEPS / wall:.2f} generated tok/s); "
+        f"max_memory_allocated {peak / 2 ** 30:.3f} GiB ({peak} B); "
+        f"launches {counts}")
+    require(tuple(toks.shape) == (batch, DECODE_STEPS)
             and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
             f"bad tokens {tuple(toks.shape)}")
-    require(counts["flash_attention"] == cfg.num_layers
-            and sum(counts.values()) == cfg.num_layers,
+    require(counts["flash_attention"] == want_fa
+            and sum(counts.values()) == want_fa,
             f"greedy_decode launched {counts}: expected flash_attention "
-            f"{cfg.num_layers} times (once per layer of the prefill)")
-    results["flash_attention"]["launches"] = counts["flash_attention"]
+            f"{want_fa} times (once per layer of a prefill without a "
+            "window)")
 
     # the parts alone: prefill, then each decode step
-    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    tokens = torch.from_numpy(toks_np).to(dev)
     prefill = serve.make_prefill_step(spec, cfg)
     decode = serve.make_decode_step(spec, cfg)
     ops.reset_launch_counts()
@@ -2853,7 +2906,7 @@ def phase_serve(torch, dev, spec, cfg, model, results):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     pre_counts = ops.launch_counts()
-    require(pre_counts["flash_attention"] == cfg.num_layers,
+    require(pre_counts["flash_attention"] == want_fa,
             f"prefill launched {pre_counts}")
     require(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
             "non-finite prefill logits")
@@ -2874,32 +2927,43 @@ def phase_serve(torch, dev, spec, cfg, model, results):
     require(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
             "non-finite decode logits")
     step_med = statistics.median(step_ms)
-    log(f"[serve] prefill alone {prefill_s * 1e3:.3f} ms "
-        f"({SERVE_BATCH * PROMPT / prefill_s:.1f} prompt tok/s), launches "
+    log(f"[{phase}] {label}prefill alone {prefill_s * 1e3:.3f} ms "
+        f"({batch * prompt / prefill_s:.1f} prompt tok/s), launches "
         f"{pre_counts}; decode step median {step_med:.4f} ms over 16 "
         f"(min {min(step_ms):.4f}, max {max(step_ms):.4f}; "
-        f"{SERVE_BATCH / step_med * 1e3:.2f} tok/s), launches {dec_counts}")
+        f"{batch / step_med * 1e3:.2f} tok/s), launches {dec_counts}")
 
     def step():
         decode(model, cache, tok)
 
-    # 16 more steps: 8 untraced, 8 traced; the cache keeps 32 slots of
-    # headroom, so no step writes past it
-    dec_prof = profile_window(torch, step, 8, "decode step")
+    # 16 more steps: 8 untraced, 8 traced; a cache without a window keeps
+    # 32 slots of headroom, so no step writes past it
+    dec_prof = profile_window(torch, step, 8, f"{label}decode step")
     del cache, logits
     torch.cuda.empty_cache()
     pre_prof = profile_window(
-        torch, lambda: prefill(model, {"tokens": tokens}), 1, "prefill")
+        torch, lambda: prefill(model, {"tokens": tokens}), 1,
+        f"{label}prefill")
     torch.cuda.empty_cache()
-    return {"arch": ARCH, "batch": SERVE_BATCH, "prompt": PROMPT,
+    return {"arch": arch, "layers": cfg.num_layers,
+            "params": cfg.param_count(), "batch": batch, "prompt": prompt,
             "decode_steps": DECODE_STEPS, "greedy_s": wall,
-            "generated_tok_per_s": SERVE_BATCH * DECODE_STEPS / wall,
+            "generated_tok_per_s": batch * DECODE_STEPS / wall,
             "prefill_ms": prefill_s * 1e3,
-            "prompt_tok_per_s": SERVE_BATCH * PROMPT / prefill_s,
+            "prompt_tok_per_s": batch * prompt / prefill_s,
             "decode_ms_median": step_med, "decode_ms": step_ms,
             "max_memory_allocated": peak, "launches": counts,
             "decode_profile": dec_prof, "prefill_profile": pre_prof,
             "first_tokens": toks[:2].cpu().tolist()}
+
+
+def phase_serve(torch, dev, spec, cfg, model, results):
+    """The dense main path: greedy_decode of yi-6b at full width and depth,
+    batch 8 x 4096, 32 steps, counted; then its parts timed alone."""
+    out = serve_run(torch, dev, spec, cfg, model, SERVE_BATCH, PROMPT)
+    results["flash_attention"]["launches"] = \
+        out["launches"]["flash_attention"]
+    return out
 
 
 def phase_dense_parity(torch, dev):
@@ -2994,15 +3058,16 @@ LOSS_TOL, GNORM_TOL, STEP_TOL = 2.0 ** -8, 2.0 ** -6, 2.0 ** -5
 FT_TOL = 1e-5       # restarted vs uninterrupted f32 runs (the CPU tests')
 
 
-def train_config(num_layers):
-    """yi-6b at full width (bf16 activations, f32 masters and moments),
-    cut to `num_layers`."""
+def train_config(num_layers, arch=ARCH, **changes):
+    """`arch` (yi-6b) at full width (bf16 activations, the config's
+    masters and moments), cut to `num_layers`, with `changes`."""
     import dataclasses
 
     from repro_torch.models import registry
 
-    spec = registry.get_spec(ARCH)
-    return spec, dataclasses.replace(spec.cfg, num_layers=num_layers)
+    spec = registry.get_spec(arch)
+    return spec, dataclasses.replace(spec.cfg, num_layers=num_layers,
+                                     **changes)
 
 
 def _train_state(torch, spec, cfg, tc, pc, dev):
@@ -3047,11 +3112,11 @@ def _param_gap(torch, state, ref, before):
     return worst, rows
 
 
-def _agree(tag, got, want, gap):
+def _agree(tag, got, want, gap, phase="train_dense"):
     dl = abs(got["loss"] - want["loss"]) / abs(want["loss"])
     dg = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
     ok = dl <= LOSS_TOL and dg <= GNORM_TOL and gap <= STEP_TOL
-    log(f"[train_dense] {tag}: loss {got['loss']:.6f} vs {want['loss']:.6f} "
+    log(f"[{phase}] {tag}: loss {got['loss']:.6f} vs {want['loss']:.6f} "
         f"(rel {dl:.3e}, tol {LOSS_TOL:.3e}); grad norm "
         f"{got['grad_norm']:.6f} vs {want['grad_norm']:.6f} (rel {dg:.3e}, "
         f"tol {GNORM_TOL:.3e}); params: worst leaf (gap - ulp) / its "
@@ -3060,13 +3125,19 @@ def _agree(tag, got, want, gap):
     return {"loss_rel": dl, "grad_norm_rel": dg, "param_gap": gap}
 
 
-def _train_main(torch, dev):
-    """(a) configuration 9: 10 adamw steps at 4 x 4096, 4 layers."""
+def _train_main(torch, dev, arch=ARCH, num_layers=TRAIN_LAYERS,
+                phase="train_dense"):
+    """(a) configuration 9: 10 adamw steps of yi-6b at 4 x 4096, 4 layers
+    (or of `arch` at `num_layers`). The model FLOPs count 6 N tokens, N
+    the parameters of the model, or an MoE model's active parameters
+    (`active_param_count`), plus the causal attention's forward and
+    backward."""
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.kernels import ops
+    from repro_torch.models import common
     from repro_torch.train import trainer
 
-    spec, cfg = train_config(TRAIN_LAYERS)
+    spec, cfg = train_config(num_layers, arch)
     tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                      total_steps=TRAIN_STEPS, optimizer="adamw")
     pc = ParallelConfig(remat="full")
@@ -3091,41 +3162,55 @@ def _train_main(torch, dev):
         step_ms.append((time.perf_counter() - t) * 1e3)
         metrics.append(_step_metrics(m))
         losses.append(metrics[-1]["loss"])
+        if len(losses) == 1:
+            first = {k: v.clone() for k, v in batch.items()}
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     require(len(losses) == TRAIN_STEPS, f"{len(losses)} steps ran")
     require(all(np.isfinite(x) for x in losses), f"losses {losses}")
-    require(losses[-1] < losses[0],
-            f"step {TRAIN_STEPS}'s loss {losses[-1]} is not below step 1's "
-            f"{losses[0]}")
+    # step 1 (lr 0 under warmup) measured the first batch's cross-entropy
+    # at the initial params; the trained params must lower it
+    with torch.no_grad():
+        logits, _ = spec.forward(state["params"], first, cfg, pc)
+        after = float(common.cross_entropy(logits, first["labels"]))
+    del logits
+    log(f"[{phase}] the first batch's cross-entropy {metrics[0]['nll']:.6f} "
+        f"at step 1, {after:.6f} after step {TRAIN_STEPS}")
+    require(after < metrics[0]["nll"],
+            f"{TRAIN_STEPS} steps did not lower the first batch's "
+            f"cross-entropy: {after} against {metrics[0]['nll']}")
     require(sum(counts.values()) == 0,
             f"training launched {counts}: its path reaches none of the "
             "four kernels")
     med = statistics.median(step_ms[2:])
     attn = 3 * 4 * cfg.resolved_head_dim * TRAIN_BATCH * cfg.num_heads \
         * cfg.num_layers * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    model_flops = 6 * n_params * tokens + attn
+    n_flops = cfg.active_param_count() if cfg.num_experts else n_params
+    model_flops = 6 * n_flops * tokens + attn
     tflops = model_flops / (med / 1e3) / 1e12
-    log(f"[train_dense] {ARCH} at full width cut to {cfg.num_layers} layers: "
-        f"{n_params} params ({state_bytes / 2 ** 30:.3f} GiB of state after "
+    log(f"[{phase}] {arch} at full width cut to {cfg.num_layers} layers: "
+        f"{n_params} params, {n_flops} of them counted in the model FLOPs "
+        f"({state_bytes / 2 ** 30:.3f} GiB of state after "
         f"init, {init_s:.2f} s); batch {TRAIN_BATCH} x {TRAIN_SEQ}, adamw lr "
         f"{TRAIN_LR} warmup {TRAIN_WARMUP}, remat full")
-    log(f"[train_dense] step ms {[round(x, 3) for x in step_ms]}; median of "
+    log(f"[{phase}] step ms {[round(x, 3) for x in step_ms]}; median of "
         f"steps 3-{TRAIN_STEPS} {med:.3f} ms, {tokens / med * 1e3:.1f} "
         f"tokens/s; model FLOPs a step {model_flops:.4e} (6 N tokens "
-        f"{6 * n_params * tokens:.4e} + causal attention fwd+bwd "
+        f"{6 * n_flops * tokens:.4e} + causal attention fwd+bwd "
         f"{attn:.4e}) = {tflops:.2f} TFLOP/s, {tflops / 989:.4f} of the "
         f"bf16 dense peak 989 TFLOP/s (NVIDIA H100 SXM data sheet); "
         f"max_memory_allocated {peak / 2 ** 30:.3f} GiB ({peak} B)")
-    log(f"[train_dense] losses {[round(x, 5) for x in losses]}; lr "
+    log(f"[{phase}] losses {[round(x, 5) for x in losses]}; aux "
+        f"{[round(m['aux'], 5) for m in metrics]}; lr "
         f"{[m['lr'] for m in metrics]}; grad norm "
         f"{[round(m['grad_norm'], 4) for m in metrics]}; launches {counts}")
 
     def one_step():
         step(state, batch)
 
-    prof = profile_window(torch, one_step, 2, "train step")
-    out = {"arch": ARCH, "layers": cfg.num_layers, "params": n_params,
+    prof = profile_window(torch, one_step, 2, f"{phase} train step")
+    out = {"arch": arch, "layers": cfg.num_layers, "params": n_params,
+           "flops_params": n_flops,
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "init_s": init_s,
            "state_bytes": state_bytes, "step_ms": step_ms,
            "step_ms_median": med, "tokens_per_s": tokens / med * 1e3,
@@ -3133,7 +3218,7 @@ def _train_main(torch, dev):
            "peak_share": tflops / 989, "max_memory_allocated": peak,
            "losses": losses, "metrics": metrics, "launches": counts,
            "profile": prof}
-    del state, batch
+    del state, batch, first
     torch.cuda.empty_cache()
     return out
 
@@ -3145,14 +3230,15 @@ def _one_step(torch, state, batch, spec, cfg, tc, pc):
     return state, _step_metrics(m)
 
 
-def _train_vs_cpu(torch, dev):
+def _train_vs_cpu(torch, dev, arch=ARCH, phase="train_dense", **changes):
     """(b) one sgd step at full width, 1 layer, 1 x 256, on the card and
-    on the CPU from the same params carried by `convert`."""
+    on the CPU from the same params carried by `convert` (of `arch`, its
+    config with `changes`)."""
     from repro_torch import convert
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.train import trainer
 
-    spec, cfg = train_config(1)
+    spec, cfg = train_config(1, arch, **changes)
     tc = TrainConfig(learning_rate=1e-2, warmup_steps=0, optimizer="sgd")
     pc = ParallelConfig()
     cpu = trainer.init_state(spec, cfg, tc, pc,
@@ -3169,10 +3255,10 @@ def _train_vs_cpu(torch, dev):
                                         batch.items()}, spec, cfg, tc, pc)
     gap, rows = _param_gap(torch, card, cpu, before)
     worst = sorted(rows.items(), key=lambda kv: -kv[1][0])[:4]
-    log(f"[train_dense] card vs CPU (1 layer, 1 x 256; the CPU step "
-        f"{cpu_s:.1f} s); worst leaves (gap less an ulp over the update, "
-        f"gap, update): {worst}")
-    out = _agree("card vs CPU, one sgd step", got, want, gap)
+    log(f"[{phase}] card vs CPU ({arch}, 1 layer, 1 x 256, "
+        f"{cfg.dtype} activations; the CPU step {cpu_s:.1f} s); worst "
+        f"leaves (gap less an ulp over the update, gap, update): {worst}")
+    out = _agree("card vs CPU, one sgd step", got, want, gap, phase)
     del card, cpu
     torch.cuda.empty_cache()
     return out
@@ -3322,6 +3408,392 @@ def phase_train_dense(torch, dev):
             "restarts": _train_restarts(torch, dev)}
 
 
+# ---------------------------------------------------------------------------
+# the MoE family and the sliding window
+# ---------------------------------------------------------------------------
+
+PHI, MIXTRAL = "phi3.5-moe-42b-a6.6b", "mixtral-8x22b"
+PHI_SERVE_LAYERS, MIXTRAL_SERVE_LAYERS, PHI_TRAIN_LAYERS = 16, 8, 2
+MIXTRAL_BATCH, MIXTRAL_PROMPT = 2, 8192
+TRAIN_PEAK_LIMIT = 75 * 2 ** 30   # above it, training is cut to 1 layer
+# card vs CPU in f32 with TF32 off: both sides sum the same f32 products
+# in other orders, which moves a value by a few f32 units of its scale
+# (~1e-6 relative over d = 4096); 1e-4 of the row's largest |logit|
+# leaves a hundredfold margin and fails on any bf16 rounding (2^-8). A
+# token whose routes differ is compared only if its top-k margin is
+# under ROUTE_MARGIN (a near tie), and then its logits are not compared.
+F32_LOGIT_TOL, F32_AUX_TOL, ROUTE_MARGIN = 1e-4, 1e-5, 1e-5
+
+
+def moe_model(torch, dev, arch, num_layers, generator=None, **changes):
+    """`arch` at full width cut to `num_layers` (bf16 matrices, f32 norm
+    scales unless `changes` say otherwise), weights from `generator`
+    (default: one on `dev` seeded SEED)."""
+    from repro_torch.models import common
+
+    spec, cfg = train_config(num_layers, arch, **changes)
+    gen = generator or torch.Generator(device=dev).manual_seed(SEED)
+    model = common.init_params(spec.model(cfg, device=gen.device), gen)
+    return spec, cfg, model
+
+
+def count_drops(torch, fn):
+    """Run `fn` with `moe.route` counting its (token, slot) pairs and the
+    dropped ones (on the device, read once at the end). Returns fn's
+    result and (dropped, pairs)."""
+    from repro_torch.models import moe
+
+    seen = []
+    real = moe.route
+
+    def counting(*args, **kwargs):
+        r = real(*args, **kwargs)
+        seen.append((r.keep.numel(), (~r.keep).sum()))
+        return r
+
+    moe.route = counting
+    try:
+        out = fn()
+    finally:
+        moe.route = real
+    return out, (int(sum(d for _, d in seen)), sum(n for n, _ in seen))
+
+
+def _moe_serve(torch, dev, arch, num_layers, batch, prompt, results):
+    """`serve_run` of `arch` cut to `num_layers`, batch x prompt; then
+    the (token, slot) pairs dropped by a prefill and 31 decode steps."""
+    from repro_torch.train import serve
+
+    out = {}
+    if arch == PHI:
+        out["flash_attention"] = _moe_attention(torch, dev, results)
+    t = time.perf_counter()
+    spec, cfg, model = moe_model(torch, dev, arch, num_layers)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    log(f"[moe] {arch} at full width cut to {num_layers} layers: "
+        f"{cfg.param_count()} params, {cfg.active_param_count()} active a "
+        f"token; weights from torch.Generator(seed {SEED}) on the card in "
+        f"{init_s:.2f} s, {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    out.update(serve_run(torch, dev, spec, cfg, model, batch, prompt, "moe",
+                         f"{arch} "), init_s=init_s)
+
+    # dropped (token, slot) pairs: a prefill (groups of 512) and 31 decode
+    # steps (each step's `batch` tokens one group), untimed
+    tokens = torch.from_numpy(prompts(cfg, batch, prompt)).to(dev)
+    prefill = serve.make_prefill_step(spec, cfg)
+    decode = serve.make_decode_step(spec, cfg)
+    (logits, cache), pre_drop = count_drops(
+        torch, lambda: prefill(model, {"tokens": tokens}))
+
+    def steps():
+        nonlocal logits, cache
+        for _ in range(DECODE_STEPS - 1):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                torch.int32)
+            logits, cache = decode(model, cache, tok)
+
+    _, dec_drop = count_drops(torch, steps)
+    log(f"[moe] {arch}: dropped (token, slot) pairs at prefill "
+        f"{pre_drop[0]} of {pre_drop[1]} ({pre_drop[0] / pre_drop[1]:.5f}), "
+        f"over {DECODE_STEPS - 1} decode steps {dec_drop[0]} of "
+        f"{dec_drop[1]} ({dec_drop[0] / dec_drop[1]:.5f})")
+    out.update(dropped_prefill=pre_drop, dropped_decode=dec_drop)
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_attention(torch, dev, results):
+    """flash_attention at phi3.5-moe's prefill shape, q (8, 4096, 32, 128)
+    against k, v (8, 4096, 8, 128) (GQA group 4) from layer 0 of a
+    1-layer phi3.5-moe (the plain version's (8, 8, 4, 4096, 4096) f32
+    scores do not fit beside the 16-layer model): held to its plain
+    version, timed beside its plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    _, cfg, model = moe_model(torch, dev, PHI, 1)
+    tokens = torch.from_numpy(prompts(cfg, SERVE_BATCH, PROMPT)).to(dev)
+    q, k, v = layer0_qkv(torch, model, cfg, tokens)
+    del model
+    err = max(_attn_case(torch, f"phi3.5-moe layer 0, batch element {i}",
+                         q[i:i + 1], k[i:i + 1], v[i:i + 1], True)
+              for i in (0, SERVE_BATCH - 1))
+    nbytes, nflops = attn_work(q, k, True)
+    bms, by = bound(nbytes, nflops, BF16_TC_FLOPS)
+    entry = {"name": "flash_attention", "shape": [list(q.shape),
+                                                  list(k.shape)],
+             "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+             "flops": nflops, "bytes": nbytes}
+    with torch.inference_mode():
+        _timed(torch, entry, lambda: flash_attention(q, k, v),
+               ("flash_attention_kernel",),
+               lambda: ref.flash_attention_ref(q, k, v))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        entry["library_ms"], entry["library_call_ms"] = kernel_and_call_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), ())
+    entry["tflops"] = nflops / entry["ms"] / 1e9
+    log(f"[moe] flash_attention at phi3.5-moe's {tuple(q.shape)} x "
+        f"{tuple(k.shape)}: device ms={entry['ms']:.4f} "
+        f"({entry['tflops']:.1f} TFLOP/s), plain ms={entry['plain_ms']:.4f}, "
+        f"scaled_dot_product_attention ms={entry['library_ms']:.4f}, bound "
+        f"{bms:.4f} ms ({by}: {nflops / 1e12:.4f} TFLOP, "
+        f"{nbytes / 1e9:.4f} GB)")
+    results["flash_attention"]["max_abs_err"] = max(
+        results["flash_attention"]["max_abs_err"], err)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return entry
+
+
+def _route_margin(probs, k):
+    """Each token's smallest gap between neighbours among its k + 1
+    largest router probabilities: under it, a rounding can reorder."""
+    top = probs.topk(k + 1, dim=-1).values
+    return (top[..., :-1] - top[..., 1:]).amin(dim=-1)
+
+
+def _layer0_routing(torch, model, cfg, tokens):
+    """Layer 0's MoE routing of a training forward's tokens (its input
+    as `transformer.decoder_layer` makes it)."""
+    from repro_torch.models import common, layers, moe, transformer
+
+    with torch.no_grad():
+        x = common.embed_tokens(model.embed, tokens, cfg)
+        tables = transformer._rope_tables(torch.arange(
+            tokens.shape[1], dtype=torch.int32, device=x.device), cfg)
+        lp = model.layers[0]
+        h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
+        x = x + layers.attention_block(lp.attn, h, cfg, tables)
+        h = layers.rms_norm(x, lp.ln2, cfg.norm_eps)
+        return moe.route(lp.mlp, h, cfg)
+
+
+def _moe_vs_cpu(torch, dev):
+    """(b) One layer of phi3.5-moe at full width, batch 2 x 512, the same
+    weights and tokens on the card and the CPU: in f32 (TF32 off) the
+    routing of layer 0, the training forward's logits and aux; in bf16 the
+    share of identical routes, prefill's last logits and the aux."""
+    import dataclasses
+
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models import transformer
+
+    spec, cfg32, cpu32 = moe_model(
+        torch, dev, PHI, 1, generator=torch.Generator().manual_seed(SEED),
+        dtype="float32")
+    tokens = torch.from_numpy(prompts(cfg32, 2, 512))
+    pc = ParallelConfig(remat="none")
+    out = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(cfg32, dtype=dtype)
+            cpu = cpu32
+            if dtype != "float32":
+                cpu = transformer.Transformer(cfg, device="cpu")
+                cpu.load_state_dict(cpu32.state_dict())
+            card = transformer.Transformer(cfg, device=dev)
+            card.load_state_dict(cpu32.state_dict())
+            t = time.perf_counter()
+            r_h = _layer0_routing(torch, cpu, cfg, tokens)
+            with torch.no_grad():
+                lg_h, aux_h = spec.forward(cpu, {"tokens": tokens}, cfg, pc)
+            # prefill's kernel takes bf16 only: in f32 the training
+            # forward's logits stand for it (its attention is the
+            # reference prefill's own blocked attention)
+            pre_h = pre_c = lg_h
+            if dtype == "bfloat16":
+                pre_h, _ = spec.prefill(cpu, {"tokens": tokens}, cfg)
+            cpu_s = time.perf_counter() - t
+            tc = tokens.to(dev)
+            r_c = _layer0_routing(torch, card, cfg, tc)
+            with torch.no_grad():
+                lg_c, aux_c = spec.forward(card, {"tokens": tc}, cfg, pc)
+            pre_c = lg_c
+            if dtype == "bfloat16":
+                pre_c, _ = spec.prefill(card, {"tokens": tc}, cfg)
+            out[dtype] = _routes_and_logits(
+                torch, dtype, cfg, r_c, r_h, (lg_c, aux_c, pre_c),
+                (lg_h, aux_h, pre_h), cpu_s)
+            del card, lg_c, pre_c
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def _routes_and_logits(torch, dtype, cfg, r_c, r_h, card, host, cpu_s):
+    """Compare layer 0's routing and the outputs of card and CPU (see
+    `_moe_vs_cpu`); returns the numbers."""
+    lg_c, aux_c, pre_c = (x.float().cpu() for x in card)
+    lg_h, aux_h, pre_h = (x.float() for x in host)
+    idx_c, pos_c, keep_c = (x.cpu() for x in (r_c.idx, r_c.pos, r_c.keep))
+    same_idx = (idx_c == r_h.idx).all(-1)                 # (ng, g)
+    same = same_idx & (pos_c == r_h.pos).all(-1) & (keep_c == r_h.keep).all(-1)
+    margin = _route_margin(r_h.probs, cfg.experts_per_token)
+    near = margin < ROUTE_MARGIN
+    # a token with other experts moves the positions of the pairs after
+    # it in its group; the first such token of each group ends the
+    # stretch in which positions must agree
+    n_ng, g = same.shape
+    first = torch.where(~same_idx, torch.arange(g)[None, :].expand(n_ng, g),
+                        g).amin(dim=1)
+    before = torch.arange(g)[None, :] < first[:, None]
+    v = cfg.vocab_size
+    # tokens routed alike: the same experts, positions and kept pairs (a
+    # re-routed token shifts the positions of the later pairs of its
+    # group, which may then be kept on one side and dropped on the other)
+    rows = same.reshape(lg_c.shape[0], -1)
+    d = (lg_c - lg_h).abs()[..., :v]
+    scale = lg_h[..., :v].abs().amax(dim=-1)
+    rel = (d.amax(dim=-1) / scale)[rows]
+    dp = (pre_c - pre_h).abs()[:, -1, :v].amax(dim=-1) / \
+        pre_h[:, -1, :v].abs().amax(dim=-1)
+    last_alike = rows[:, -1]
+    aux_rel = float(abs(aux_c - aux_h) / abs(aux_h))
+    rec = {"experts_identical": int(same_idx.sum()),
+           "routes_identical": int(same.sum()), "tokens": int(same.numel()),
+           "other_experts": int((~same_idx).sum()),
+           "other_experts_near_ties": int((~same_idx & near).sum()),
+           "near_ties": int(near.sum()), "min_margin": float(margin.min()),
+           "logits_max_rel": float(rel.max()),
+           "prefill_last_max_rel": [float(x) for x in dp],
+           "aux": [float(aux_c), float(aux_h)], "aux_rel": aux_rel,
+           "cpu_s": cpu_s}
+    log(f"[moe] card vs CPU, phi3.5-moe 1 layer, 2 x 512, {dtype}: experts "
+        f"identical for {rec['experts_identical']} of {rec['tokens']} "
+        f"tokens, experts, positions and kept pairs for "
+        f"{rec['routes_identical']}; "
+        f"other experts {rec['other_experts']} "
+        f"({rec['other_experts_near_ties']} of them near ties, top-k margin "
+        f"< {ROUTE_MARGIN}; {rec['near_ties']} near ties in all, smallest "
+        f"margin {rec['min_margin']:.3e}); "
+        f"logits of the tokens routed alike max|d| / max|logit| "
+        f"{rec['logits_max_rel']:.3e}, prefill's last logits "
+        f"{[f'{x:.3e}' for x in rec['prefill_last_max_rel']]}; aux "
+        f"{float(aux_c):.7f} vs {float(aux_h):.7f} (rel {aux_rel:.3e}); "
+        f"the CPU's forward and prefill {cpu_s:.1f} s")
+    if dtype == "float32":
+        require(bool(((same_idx) | near).all()),
+                "f32: a token away from a near tie has other experts on "
+                "the card")
+        require(bool((same | ~before).all()),
+                "f32: capacity positions or kept pairs differ before a "
+                "group's first re-routed token")
+        tol = F32_LOGIT_TOL
+        ok = rec["logits_max_rel"] <= tol and bool(
+            (dp[last_alike] <= tol).all())
+        require(ok, f"f32 logits differ by more than {tol} of the row's "
+                    "scale")
+        if rec["other_experts"] == 0:
+            require(aux_rel <= F32_AUX_TOL, f"f32 aux differs by {aux_rel}")
+    else:
+        require(same_idx.float().mean() >= 0.95,
+                "bf16: fewer than 95% of the tokens given the same experts")
+        ok = rec["logits_max_rel"] <= ATTN_TOL and bool(
+            (dp[last_alike] <= ATTN_TOL).all()) and aux_rel <= ATTN_TOL
+        require(ok, f"bf16 logits or aux differ by more than {ATTN_TOL} "
+                    "of their scale")
+    return rec
+
+
+def _moe_train(torch, dev):
+    """(c) configuration 11: phi3.5-moe trained at 2 layers (1 if the peak
+    passes TRAIN_PEAK_LIMIT), then one sgd step card vs CPU at 1 layer in
+    f32 activations."""
+    main = None
+    try:
+        main = _train_main(torch, dev, PHI, PHI_TRAIN_LAYERS, "moe")
+    except torch.cuda.OutOfMemoryError as e:
+        log(f"[moe] training at {PHI_TRAIN_LAYERS} layers ran out of "
+            f"memory ({str(e)[:200]}); cut to 1 layer")
+        torch.cuda.empty_cache()
+    if main is not None and main["max_memory_allocated"] > TRAIN_PEAK_LIMIT:
+        log(f"[moe] training at {PHI_TRAIN_LAYERS} layers peaked at "
+            f"{main['max_memory_allocated'] / 2 ** 30:.3f} GiB, above 75; "
+            "cut to 1 layer")
+        main = None
+    if main is None:
+        main = _train_main(torch, dev, PHI, 1, "moe")
+    require(main["metrics"][-1]["aux"] > 0, "no MoE aux loss")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        vs = _train_vs_cpu(torch, dev, PHI, "moe", dtype="float32")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"main": main, "card_vs_cpu": vs}
+
+
+def _ring_check(torch, dev, cfg, batch):
+    """(d) decode_attention over a ring of W slots against the blocked
+    sliding-window attention over the whole sequence, at mixtral's
+    attention widths, on seeded bf16 q, k, v for 8192 + 32 positions:
+    each decode step's output within ATTN_TOL * (1 + |reference|)."""
+    from repro_torch.models import layers
+
+    w, s = cfg.sliding_window, MIXTRAL_PROMPT + DECODE_STEPS
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v = rand(batch, s, h, hd), rand(batch, s, kh, hd), \
+        rand(batch, s, kh, hd)
+    with torch.inference_mode():
+        want = layers.blocked_causal_attention(q, k, v, window=w)
+        p0 = MIXTRAL_PROMPT - w
+        ring_k, ring_v = k[:, p0:MIXTRAL_PROMPT].clone(), \
+            v[:, p0:MIXTRAL_PROMPT].clone()
+        errs = []
+        for t in range(DECODE_STEPS):
+            pos = MIXTRAL_PROMPT + t
+            ring_k[:, pos % w] = k[:, pos]
+            ring_v[:, pos % w] = v[:, pos]
+            got = layers.decode_attention(
+                q[:, pos:pos + 1], ring_k, ring_v,
+                torch.full((batch,), pos + 1, dtype=torch.int32, device=dev),
+                window=w)
+            ref_row = want[:, pos:pos + 1].float()
+            d = (got.float() - ref_row).abs()
+            require(bool((d <= ATTN_TOL * (1 + ref_row.abs())).all()),
+                    f"ring decode at position {pos} differs from the "
+                    "blocked window attention")
+            errs.append(float(d.max()))
+    log(f"[moe] ring check, mixtral attention ({batch} x {s} positions, "
+        f"{h}/{kh} heads, hd {hd}, W {w}): {DECODE_STEPS} decode steps over "
+        f"the ring against blocked_causal_attention(window={w}), max|d| "
+        f"{max(errs):.3e} (tol {ATTN_TOL} * (1 + |reference|)) ok=True")
+    del q, k, v, want, ring_k, ring_v
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(errs), "errs": errs}
+
+
+def phase_moe(torch, dev, results):
+    """The MoE family and the sliding window: (a) phi3.5-moe serving,
+    (b) card vs CPU, (c) phi3.5-moe training, (d) mixtral serving and
+    the ring check."""
+    torch.cuda.empty_cache()
+    out = {"phi_serve": _moe_serve(torch, dev, PHI, PHI_SERVE_LAYERS,
+                                   SERVE_BATCH, PROMPT, results)}
+    out["card_vs_cpu"] = _moe_vs_cpu(torch, dev)
+    out["phi_train"] = _moe_train(torch, dev)
+    out["mixtral_serve"] = _moe_serve(torch, dev, MIXTRAL,
+                                      MIXTRAL_SERVE_LAYERS, MIXTRAL_BATCH,
+                                      MIXTRAL_PROMPT, results)
+    _, cfg = train_config(1, MIXTRAL)
+    out["ring"] = _ring_check(torch, dev, cfg, MIXTRAL_BATCH)
+    return out
+
+
 def main():
     import torch
 
@@ -3363,6 +3835,7 @@ def main():
     torch.cuda.empty_cache()
     dense_parity = phase_dense_parity(torch, dev)
     train_dense = phase_train_dense(torch, dev)
+    moe = phase_moe(torch, dev, results)
 
     kernels = [results[name] for name in ("sigmoid_grad",
                                           "segment_sum_sorted",
@@ -3377,7 +3850,8 @@ def main():
          "engine": engine, "dataplane": dataplane,
          "multirank": multirank, "p8": p8,
          "parity": parity, "sparse_serve": sparse_serve, "serve": served,
-         "dense_parity": dense_parity, "train_dense": train_dense},
+         "dense_parity": dense_parity, "train_dense": train_dense,
+         "moe": moe},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -8,10 +8,10 @@ device) and `seed` come back with the code that reads them, so passing
 one is an error rather than silently ignored.
 
 `ModelConfig` is the counterpart of `repro.configs.base.ModelConfig` (the
-dense face), with all of its fields and defaults; the port serves and
-trains the `dense` and `vlm` families, and its model code raises on the
-fields of the families it does not run yet (MoE experts, a sliding
-window).
+dense face), with all of its fields, defaults and parameter counts; the
+port serves and trains the `dense`, `vlm` and `moe` families (MoE
+experts, a sliding window), and `configs.get_config` refuses the ids of
+the families it does not run yet.
 
 `ParallelConfig` and `TrainConfig` are copies of the reference's, field
 for field. On one card the trainer reads `remat`, `microbatches` and
@@ -145,6 +145,16 @@ class ModelConfig:
         n_layers = self.num_layers + self.encoder_layers
         embed = v * d * (1 if self.tie_embeddings else 2)
         return n_layers * per_layer + embed
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if not self.num_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        mats = 3 if self.mlp_type == "swiglu" else 2
+        dense_mlp = self.num_experts * mats * d * f
+        active_mlp = self.experts_per_token * mats * d * f
+        return self.param_count() - self.num_layers * (dense_mlp - active_mlp)
 
 
 def _xlstm_block_params(cfg: ModelConfig) -> int:

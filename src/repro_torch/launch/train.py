@@ -358,8 +358,8 @@ def main(argv=None):
     if not args.sparse:
         if not args.arch:
             ap.error("--arch is required (or pass --sparse): a model zoo "
-                     "id of the dense or vlm family (the reference's other "
-                     "families are ROADMAP A12)")
+                     "id of the dense, vlm or moe family (the reference's "
+                     "other families are ROADMAP A12)")
         if int(os.environ.get("WORLD_SIZE", "1")) > 1:
             ap.error("the dense trainer is one process on one card; over "
                      "several ranks it is ROADMAP A12 (Distribution)")

@@ -1,3 +1,3 @@
-"""Model code of the port: the dense family's serve path (prefill and
-greedy decode), with chameleon's qk-norm. Training, MoE, SWA, SSM,
-hybrid and encoder-decoder models are ROADMAP A12."""
+"""Model code of the port: the dense, vlm and MoE families (mixtral with
+its sliding window), served (prefill and greedy decode) and trained.
+SSM, hybrid and encoder-decoder models are ROADMAP A12."""

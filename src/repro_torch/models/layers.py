@@ -1,11 +1,11 @@
-"""Model layers of the port (`repro.models.layers`' dense subset).
+"""Model layers of the port (`repro.models.layers`' decoder subset).
 
 Norms, RoPE, the attention projections, the MLPs, the blocked causal
-attention of training, prefill's causal self-attention and decode's
-attention over the cache, as plain functions over tensors; `p` is the
-`nn.Module` that holds a block's parameters under the reference's names
-and layouts (`wq` (d, H, hd), `wo` (H, hd, d), `wi_gate`/`wi_up`/`wo` or
-`wi`/`wo`).
+attention of training (full or sliding-window), prefill's causal
+self-attention and decode's attention over the cache, as plain functions
+over tensors; `p` is the `nn.Module` that holds a block's parameters
+under the reference's names and layouts (`wq` (d, H, hd), `wo`
+(H, hd, d), `wi_gate`/`wi_up`/`wo` or `wi`/`wo`).
 
 Numerics follow the reference's casts. Each use casts a matrix to the
 activation dtype (the identity for a serving model, whose matrices are
@@ -18,8 +18,10 @@ the MLP's output), a plain product in that dtype, which accumulates in
 f32 and rounds once. Training's attention is `attention_block` over
 `blocked_causal_attention`, differentiated by autograd as the reference
 differentiates its jnp blocks (the Pallas kernel has no backward).
-Prefill's attention is `kernels.ops.flash_attention`: the hand-written
-kernel on the card, its plain version on the CPU.
+Prefill's attention is `kernels.ops.flash_attention` (the hand-written
+kernel on the card, its plain version on the CPU) without a window; with
+a sliding window it is the reference's own blocked schedule, since the
+Pallas kernel has no window either.
 """
 from __future__ import annotations
 
@@ -140,13 +142,6 @@ def _repeat_kv(k, n_rep: int):
         b, s, kh * n_rep, hd)
 
 
-def _no_window(window: int) -> None:
-    if window:
-        raise NotImplementedError(
-            f"sliding-window attention (window={window}) is not ported: "
-            "SWA is mixtral's, an MoE model, ROADMAP A12")
-
-
 def _attn_block(q, k, v, m, l, acc, mask, scale):
     """One online-softmax step of the reference's `_attn_block`, heads
     first: q (B, H, qb, hd), k and v (B, H, kb, hd), m and l (B, H, qb)
@@ -240,20 +235,53 @@ def _masked_scan_attention(q, k, v, q_block, kv_block, scale):
     return torch.cat(outs, dim=2)
 
 
+def _swa_attention(q, k, v, window, q_block, kv_block, scale):
+    """Sliding-window causal attention, the reference's `_swa_attention`:
+    k and v left-padded by `window`, so that q block i sees the static
+    span padded[qs : qs + window + q_block], in kv blocks of
+    min(kv_block, span) and a remainder block. Query position qs + i sees
+    the keys in (qs + i - window, qs + i]; the padding is masked."""
+    sq = q.shape[2]
+    kp = F.pad(k, (0, 0, window, 0))
+    vp = F.pad(v, (0, 0, window, 0))
+    span = window + q_block
+    kb = min(kv_block, span)
+    n_kv = span // kb
+    starts = [(j * kb, kb) for j in range(n_kv)]
+    if span - n_kv * kb:
+        starts.append((n_kv * kb, span - n_kv * kb))
+    rel_q = torch.arange(q_block, device=q.device)[:, None] + window
+    outs = []
+    for iq in range(sq // q_block):
+        qs = iq * q_block
+        qi = q[:, :, qs:qs + q_block]
+        m, l, acc = _init_carry(q, q_block)
+        for k0, kn in starts:
+            kpos = torch.arange(k0, k0 + kn, device=q.device)[None, :]
+            valid = (kpos <= rel_q) & (kpos > rel_q - window) \
+                & (qs - window + kpos >= 0)
+            m, l, acc = _attn_block(qi, kp[:, :, qs + k0:qs + k0 + kn],
+                                    vp[:, :, qs + k0:qs + k0 + kn], m, l,
+                                    acc, valid, scale)
+        outs.append(_finalize(acc, l))
+    return torch.cat(outs, dim=2)
+
+
 def blocked_causal_attention(q, k, v, *, window: int = 0,
                              q_block: int = 1024, kv_block: int = 1024,
                              unroll_limit: int = 64):
-    """Causal attention, O(S * block) memory per step, differentiable:
-    q (B, S, H, hd), k and v (B, S, KH, hd) with H % KH == 0 ->
-    (B, S, H, hd) in q's dtype, scaled by 1/sqrt(hd).
+    """Causal, optionally sliding-window, attention, O(S * block) memory
+    per step, differentiable: q (B, S, H, hd), k and v (B, S, KH, hd)
+    with H % KH == 0 -> (B, S, H, hd) in q's dtype, scaled by
+    1/sqrt(hd).
 
-    The reference's schedules and block sizes: the unrolled triangular
-    schedule when there are at most `unroll_limit` q blocks, else every
-    q block against every kv block under the mask. An S that `q_block`
-    does not divide is one q block. The port computes heads first (one
-    transposed copy of q, k and v) so that each block's products are
-    batched over (B, H)."""
-    _no_window(window)
+    The reference's schedules and block sizes: with a window,
+    `_swa_attention`; else the unrolled triangular schedule when there
+    are at most `unroll_limit` q blocks, and every q block against every
+    kv block under the mask beyond. An S that `q_block` does not divide
+    is one q block. The port computes heads first (one transposed copy
+    of q, k and v) so that each block's products are batched over
+    (B, H)."""
     b, sq, h, hd = q.shape
     kh = k.shape[2]
     k = _repeat_kv(k, h // kh)
@@ -264,7 +292,9 @@ def blocked_causal_attention(q, k, v, *, window: int = 0,
         q_block = sq
     n_q = sq // q_block
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    if n_q <= unroll_limit:
+    if window:
+        out = _swa_attention(qt, kt, vt, window, q_block, kv_block, scale)
+    elif n_q <= unroll_limit:
         out = _triangular_attention(qt, kt, vt, q_block, kv_block, scale)
     else:
         out = _masked_scan_attention(qt, kt, vt, q_block, kv_block, scale)
@@ -295,28 +325,33 @@ def causal_self_attention(q, k, v, *, window: int = 0):
     """Prefill's self-attention: q (B, S, H, hd), k and v (B, S, KH, hd) ->
     (B, S, H, hd), causal, scaled by 1/sqrt(hd). The reference computes it
     with `layers.blocked_causal_attention`; the port with the
-    `flash_attention` kernel (one launch per layer on the card)."""
-    _no_window(window)
+    `flash_attention` kernel (one launch per layer on the card), or, with
+    a sliding window, which the kernel does not take, with the
+    reference's blocked schedule (no kernel)."""
+    if window:
+        return blocked_causal_attention(q, k, v, window=window)
     return ops.flash_attention(q, k, v, causal=True)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
     """Single-step decode: q (B, 1, H, hd) against the cache (B, S, KH, hd),
-    masked to cache_len ((B,) int). The q heads are grouped as
+    masked to cache_len ((B,) int); with a window the cache is the ring
+    of the last S positions, every slot below min(cache_len, S) valid,
+    as in the reference. The q heads are grouped as
     (B, KH, group, hd) against their KV head, which gives the numbers of
     the reference's `_repeat_kv` without repeating the cache group-fold;
     the reshape of the permuted cache into the batched products' layout
     still copies K and V once per call. Scores and the probabilities'
     product with V are f32 products; the probabilities enter that product
     in the cache's dtype, as in the reference."""
-    _no_window(window)
     b, s, kh, hd = k_cache.shape
     h = q.shape[2]
     g = h // kh
     qg = q.reshape(b * kh, g, hd)
     kt = k_cache.permute(0, 2, 3, 1).reshape(b * kh, hd, s)
     scores = common.bmm_f32(qg, kt).reshape(b, kh, g, s) / math.sqrt(hd)
-    valid = torch.arange(s, device=q.device)[None, :] < cache_len[:, None]
+    limit = torch.clamp(cache_len, max=s) if window else cache_len
+    valid = torch.arange(s, device=q.device)[None, :] < limit[:, None]
     scores = torch.where(valid[:, None, None, :], scores, -1e30)
     p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     vg = v_cache.permute(0, 2, 1, 3).reshape(b * kh, s, hd)

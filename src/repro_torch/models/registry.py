@@ -1,8 +1,9 @@
 """Architecture registry of the port: arch id -> params, forward, prefill,
 decode (counterpart of `repro.models.registry`, for the ported families).
 
-The port trains and serves the `dense` and `vlm` families through
-`models.transformer`; `configs.get_config` raises for the others.
+The port trains and serves the `dense`, `vlm` and `moe` families through
+`models.transformer`, as the reference does; `configs.get_config` raises
+for the others.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ _FAMILY = {
     "dense": dict(model=transformer.Transformer, forward=_lm_forward,
                   prefill=_lm_prefill, decode_step=transformer.decode_step),
 }
+_FAMILY["moe"] = _FAMILY["dense"]
 _FAMILY["vlm"] = _FAMILY["dense"]
 
 
@@ -48,11 +50,10 @@ def get_spec(arch_id: str) -> ArchSpec:
 
 
 def smoke_config(arch_id: str) -> ModelConfig:
-    """Same-family reduced config: tiny widths, few layers, f32, as the
-    reference's `registry.smoke_config`."""
+    """Same-family reduced config: tiny widths, few layers and experts,
+    a window of 8, f32, as the reference's `registry.smoke_config`."""
     cfg = get_config(arch_id)
-    return dataclasses.replace(
-        cfg,
+    r = dict(
         num_layers=2,
         d_model=64,
         num_heads=4,
@@ -64,3 +65,8 @@ def smoke_config(arch_id: str) -> ModelConfig:
         param_dtype="float32",
         dtype="float32",
     )
+    if cfg.num_experts:
+        r.update(num_experts=4, experts_per_token=2)
+    if cfg.sliding_window:
+        r.update(sliding_window=8)
+    return dataclasses.replace(cfg, **r)

@@ -1,5 +1,6 @@
 """Decoder-only transformer (counterpart of `repro.models.transformer`):
-the dense family, and chameleon (vlm) with qk-norm.
+the dense family, chameleon (vlm) with qk-norm, and the MoE family
+(`models.moe` in place of the MLP; mixtral with a sliding window).
 
 `Transformer` holds the parameters as `nn.Module`s, one `DecoderLayer`
 per layer, under the reference's names and layouts (`attn.wq`,
@@ -10,7 +11,9 @@ them (`convert` carries a stacked numpy tree either way). Built with
 (`common.add_params`).
 
 `forward` is training's forward, `transformer.forward`: logits (B, S,
-V_pad) f32 and the aux loss, differentiable. `ParallelConfig.remat`
+V_pad) f32 and the aux loss (the sum over layers of the MoE
+load-balancing loss, 0 for dense layers, with MoE groups of
+`ParallelConfig.moe_group` tokens), differentiable. `ParallelConfig.remat`
 maps onto `torch.utils.checkpoint` a layer at a time ("full" saves only
 a layer's input, "dots" also the outputs of `aten.mm`, the counterpart
 of `checkpoint_dots_with_no_batch_dims`, "none" is plain autograd);
@@ -24,7 +27,14 @@ reference.
 (B,) int32. Prefill allocates it once with PREFILL_EXTRA slots of zero
 headroom and writes each layer's K/V into it (the reference pads after
 the scan); decode writes its slot in place (the reference's one-hot
-masked update, which gives the same values).
+masked update, which gives the same values). Under a sliding window W
+the cache is a ring of min(S, W) slots with no headroom, holding the
+prompt's last positions in order, and decode writes slot `pos % slots`,
+as the reference does; that ring is aligned with positions only when
+the prompt length S is a multiple of W, and the port reproduces the
+reference's results where it is not (ROADMAP C21).
+Prefill and decode route MoE tokens in the default groups of
+`moe.GROUP_SIZE`: a decode step's B tokens are one group.
 """
 from __future__ import annotations
 
@@ -36,20 +46,13 @@ from torch.utils import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import common, layers
+from repro_torch.models import common, layers, moe
 
-PREFILL_EXTRA = 32   # decode headroom appended to prefill caches
+PREFILL_EXTRA = 32   # decode headroom appended to non-SWA prefill caches
 
 
-def _ported(cfg: ModelConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (num_experts={cfg.num_experts}) are "
-            "not ported, ROADMAP A12")
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not ported, "
-            "ROADMAP A12")
+def _mlp_defs(cfg: ModelConfig) -> dict:
+    return moe.moe_defs(cfg) if cfg.num_experts else layers.mlp_defs(cfg)
 
 
 class _Params(nn.Module):
@@ -59,12 +62,13 @@ class _Params(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm block: attention and MLP, each behind an RMS norm."""
+    """Pre-norm block: attention and MLP (or MoE), each behind an RMS
+    norm."""
 
     def __init__(self, cfg: ModelConfig, device=None, train: bool = False):
         super().__init__()
         self.attn = _Params(layers.attn_defs(cfg), cfg, device, train)
-        self.mlp = _Params(layers.mlp_defs(cfg), cfg, device, train)
+        self.mlp = _Params(_mlp_defs(cfg), cfg, device, train)
         common.add_params(self, {"ln1": (cfg.d_model,),
                                  "ln2": (cfg.d_model,)}, cfg, device, train)
 
@@ -78,7 +82,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None, train: bool = False):
         super().__init__()
-        _ported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.layers = nn.ModuleList(DecoderLayer(cfg, device, train)
@@ -97,7 +100,7 @@ def transformer_defs(cfg: ModelConfig) -> dict:
     """Parameter shapes in the reference's tree, layers stacked on a
     leading axis (the layout `convert` carries)."""
     L = cfg.num_layers
-    layer = {"attn": layers.attn_defs(cfg), "mlp": layers.mlp_defs(cfg),
+    layer = {"attn": layers.attn_defs(cfg), "mlp": _mlp_defs(cfg),
              "ln1": (cfg.d_model,), "ln2": (cfg.d_model,)}
 
     def stack(d):
@@ -108,8 +111,11 @@ def transformer_defs(cfg: ModelConfig) -> dict:
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """KV cache shapes and dtypes: k and v (L, B, max_len, KH, hd)."""
-    kv = ((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+    """KV cache shapes and dtypes: k and v (L, B, slots, KH, hd), slots =
+    max_len, or min(max_len, W) under a sliding window W."""
+    w = cfg.sliding_window
+    slots = min(max_len, w) if w else max_len
+    kv = ((cfg.num_layers, batch, slots, cfg.num_kv_heads,
            cfg.resolved_head_dim), common.act_dtype(cfg))
     return {"k": kv, "v": kv, "length": ((batch,), torch.int32)}
 
@@ -131,16 +137,19 @@ def _rope(q, k, tables):
 
 
 def decoder_layer(lp, x, cfg: ModelConfig, tables,
-                  attn_mode: str = "auto"):
+                  attn_mode: str = "auto",
+                  moe_group: int = moe.GROUP_SIZE):
     """x (B, S, D) -> ((B, S, D), aux): the pre-norm residual block of
     training. `tables` are RoPE's (sin, cos) for the sequence's positions
-    (`_rope_tables`, None without RoPE); aux, the MoE load-balance loss,
-    is 0 for a dense layer."""
+    (`_rope_tables`, None without RoPE); aux, the MoE load-balance loss
+    over groups of `moe_group` tokens, is 0 for a dense layer."""
     h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
     x = x + layers.attention_block(lp.attn, h, cfg, tables,
                                    attn_mode=attn_mode)
-    x = _ffn_half(lp, x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _ffn_half(lp, x, cfg, moe_group)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _save_mm(ctx, op, *args, **kwargs):
@@ -177,27 +186,35 @@ def forward(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
                                        device=x.device), cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
-        x, a = layer(lp, x, cfg, tables, parallel.attn_mode)
+        x, a = layer(lp, x, cfg, tables, parallel.attn_mode,
+                     parallel.moe_group)
         aux = aux + a
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     return common.lm_head(model.unembed_table(), x, cfg), aux
 
 
-def _ffn_half(lp, x, cfg: ModelConfig):
+def _ffn_half(lp, x, cfg: ModelConfig, moe_group: int = moe.GROUP_SIZE):
+    """x + the MLP (or MoE) of its RMS norm, and the MoE aux loss (None
+    for a dense layer), as the reference's `_ffn`."""
     h = layers.rms_norm(x, lp.ln2, cfg.norm_eps)
-    return x + layers.mlp_block(lp.mlp, h, cfg)
+    if cfg.num_experts:
+        ff, aux = moe.moe_block(lp.mlp, h, cfg, group_size=moe_group)
+        return x + ff, aux
+    return x + layers.mlp_block(lp.mlp, h, cfg), None
 
 
 @torch.inference_mode()
 def prefill(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig):
     """tokens (B, S) int -> (last-token logits (B, 1, V_pad) f32, cache)."""
     b, s = tokens.shape
+    w = cfg.sliding_window
+    slots = min(s, w) if w else s
     x = common.embed_tokens(model.embed, tokens, cfg)
     tables = _rope_tables(torch.arange(s, dtype=torch.int32,
                                        device=x.device), cfg)
     cache = {name: torch.zeros(shape, dtype=dtype, device=x.device)
              for name, (shape, dtype)
-             in cache_defs(cfg, b, s + PREFILL_EXTRA).items()}
+             in cache_defs(cfg, b, slots if w else s + PREFILL_EXTRA).items()}
     cache["length"].fill_(s)
     for i, lp in enumerate(model.layers):
         h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
@@ -207,9 +224,9 @@ def prefill(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig):
         att = layers.causal_self_attention(q, k, v,
                                            window=cfg.sliding_window)
         x = x + layers.project_out(lp.attn, att)
-        x = _ffn_half(lp, x, cfg)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+        x, _ = _ffn_half(lp, x, cfg)
+        cache["k"][i, :, :slots] = k[:, s - slots:]
+        cache["v"][i, :, :slots] = v[:, s - slots:]
     x = layers.rms_norm(x[:, -1:], model.ln_f, cfg.norm_eps)
     return common.lm_head(model.unembed_table(), x, cfg), cache
 
@@ -225,7 +242,10 @@ def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
     pos = cache["length"]                                  # (B,)
     x = common.embed_tokens(model.embed, tokens, cfg)
     rows = torch.arange(b, device=x.device)
-    slot = torch.clamp(pos, max=slots - 1).long()
+    if cfg.sliding_window:
+        slot = (pos % slots).long()            # the ring of window slots
+    else:
+        slot = torch.clamp(pos, max=slots - 1).long()
     tables = _rope_tables(pos[:, None], cfg)
     visible = pos + 1
     for i, lp in enumerate(model.layers):
@@ -238,7 +258,7 @@ def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
         att = layers.decode_attention(q, cache["k"][i], cache["v"][i],
                                       visible, window=cfg.sliding_window)
         x = x + layers.project_out(lp.attn, att)
-        x = _ffn_half(lp, x, cfg)
+        x, _ = _ffn_half(lp, x, cfg)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     logits = common.lm_head(model.unembed_table(), x, cfg)
     cache["length"] += 1

@@ -19,7 +19,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import layers as jlayers
 from repro_torch.kernels import ops, ref
-from repro_torch.models import layers
+from repro_torch.models import layers, registry
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -111,5 +111,6 @@ def test_seam_refuses_on_every_device():
         ops.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="H divisible by KH"):
         ops.flash_attention(q[:, :, :3], k, v, causal=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        layers.causal_self_attention(q[:, :20], k, v, window=8)
+    for arch in ("zamba2-2.7b", "xlstm-125m", "whisper-small"):
+        with pytest.raises(KeyError, match="ROADMAP A12"):
+            registry.get_spec(arch)

@@ -174,27 +174,15 @@ def test_serving_without_device_needs_a_card():
 
 
 def test_unported_model_features_raise(capsys):
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launch_serve
-    from repro_torch.models import layers, registry, transformer
+    from repro_torch.models import registry
 
-    cfg = registry.smoke_config("yi-6b")
-    for field in ("num_experts", "sliding_window"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            transformer.Transformer(dataclasses.replace(cfg, **{field: 4}),
-                                    device="cpu")
-    q = torch.zeros((1, 4, 4, 16))
-    kv = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        layers.causal_self_attention(q, kv, kv, window=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        layers.decode_attention(q[:, :1], kv, kv, torch.tensor([4]),
-                                window=2)
-    for arch in ("mixtral-8x22b", "zamba2-2.7b", "whisper-small"):
+    for arch in ("zamba2-2.7b", "xlstm-125m", "whisper-small"):
         with pytest.raises(KeyError, match="ROADMAP A12"):
             get_config(arch)
+        with pytest.raises(KeyError, match="ROADMAP A12"):
+            registry.get_spec(arch)
     with pytest.raises(SystemExit):
         launch_serve.main(["--sparse", "--arch", "yi-6b"])
     assert "is a dense LM config" in capsys.readouterr().err

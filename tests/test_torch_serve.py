@@ -4,7 +4,9 @@ The same weights (the reference's `init_from_defs` at a seed, carried
 across by `convert.params_from_numpy`) and the same numpy tokens go
 through `spec.prefill`, `spec.decode_step` and `greedy_decode` of both
 packages, at smoke size for yi-6b (GQA, swiglu), granite-34b (gelu MLP,
-one KV head) and chameleon-34b (qk-norm). In f32 the two differ only in
+one KV head), chameleon-34b (qk-norm), phi3.5-moe (top-2 of 4 experts)
+and mixtral (experts and a window of 8, so that the smoke prompt of 12
+wraps the ring). In f32 the two differ only in
 the order of f32 sums: logits and caches agree to 1e-4. One bf16 case
 holds to the reference's own bf16 tolerance of 2e-2
 (tests/test_models.py), since each package rounds its bf16 intermediates
@@ -12,6 +14,15 @@ in its own order. The reference draws its stacked norm scales from
 N(0, 0.02^2) (ROADMAP C7); the tests replace them by 1 + N(0, 0.1^2) from
 numpy, so that the norms shape the result and attention is not near
 uniform.
+
+Mixtral's window is also served at prompt lengths S of 8, 16, 12 and 5
+against the reference: prefill, 3 decode steps and greedy tokens. The
+reference's ring is aligned with positions only when S is a multiple of
+the window (ROADMAP C21); the port reproduces it either way. A
+teacher-forced oracle at capacity factor 2 (no MoE token dropped, so a
+token's output does not depend on its group) shows decode after
+prefill(S) equal to prefill(S + t) within 1e-4 at S = 8 and 16, and the
+reference's divergence, by more than 0.1, at S = 12 and 5.
 """
 import dataclasses
 
@@ -33,7 +44,8 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import common, registry, transformer
 from repro_torch.train import serve
 
-ARCHS = ["yi-6b", "granite-34b", "chameleon-34b"]
+ARCHS = ["yi-6b", "granite-34b", "chameleon-34b", "phi3.5-moe-42b-a6.6b",
+         "mixtral-8x22b"]
 TOL = 1e-4
 PARALLEL = ParallelConfig(seq_shard=False, remat="none")
 B, S = 2, 12
@@ -105,6 +117,10 @@ def test_prefill_matches_reference(arch):
     assert logits.dtype == torch.float32
     _close(logits, jlogits)
     _close_cache(cache, jcache)
+    if cfg.sliding_window:
+        # the ring of the window's last positions, no headroom
+        assert cache["k"].shape[2] == min(S, cfg.sliding_window)
+        return
     # the decode headroom is zero
     assert cache["k"].shape[2] == S + transformer.PREFILL_EXTRA
     assert not cache["k"][:, :, S:].any() and not cache["v"][:, :, S:].any()
@@ -223,3 +239,73 @@ def test_launch_serve_on_the_cpu(capsys):
                                "--batch", "3", "--prompt-len", "9",
                                "--decode-steps", "5"])
     assert torch.equal(toks, again)
+
+
+SWA_ARCH = "mixtral-8x22b"
+
+
+def _swa_setup(s, capacity_factor=None):
+    jcfg, cfg, jparams, model, _ = _setup(SWA_ARCH)
+    if capacity_factor:
+        jcfg = dataclasses.replace(jcfg, capacity_factor=capacity_factor)
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
+    tokens = np.random.default_rng(s).integers(
+        0, cfg.vocab_size, size=(B, s + 8)).astype(np.int32)
+    return jcfg, cfg, jparams, model, tokens
+
+
+@pytest.mark.parametrize("s", [8, 16, 12, 5])
+def test_swa_serving_matches_reference(s):
+    jcfg, cfg, jparams, model, tokens = _swa_setup(s)
+    assert cfg.sliding_window == 8
+    jspec, spec = jregistry.get_spec(SWA_ARCH), registry.get_spec(SWA_ARCH)
+    jlogits, jcache = jspec.prefill(
+        jparams, {"tokens": jnp.asarray(tokens[:, :s])}, jcfg, PARALLEL)
+    logits, cache = spec.prefill(model, {"tokens": torch.from_numpy(
+        tokens[:, :s])}, cfg)
+    _close(logits, jlogits)
+    _close_cache(cache, jcache)
+    for t in range(s, s + 3):
+        step = tokens[:, t:t + 1]
+        jlogits, jcache = jspec.decode_step(jparams, jcache,
+                                            jnp.asarray(step), jcfg)
+        logits, cache = spec.decode_step(model, cache,
+                                         torch.from_numpy(step), cfg)
+        _close(logits, jlogits)
+        _close_cache(cache, jcache)
+    want = jserve.greedy_decode(jspec, jcfg, jparams,
+                                {"tokens": jnp.asarray(tokens[:, :s])}, 6,
+                                PARALLEL)
+    got = serve.greedy_decode(spec, cfg, model, {"tokens": tokens[:, :s]},
+                              6, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("s", [8, 16, 12, 5])
+def test_swa_decode_against_the_prefill_oracle(s):
+    """Decode after prefill(S), teacher-forced, against prefill(S + t)'s
+    last logits, in both packages: equal where the ring is aligned
+    (S % W == 0), the reference's divergence reproduced where not."""
+    jcfg, cfg, jparams, model, tokens = _swa_setup(s, capacity_factor=2.0)
+    jspec, spec = jregistry.get_spec(SWA_ARCH), registry.get_spec(SWA_ARCH)
+    _, cache = spec.prefill(model, {"tokens": torch.from_numpy(
+        tokens[:, :s])}, cfg)
+    _, jcache = jspec.prefill(jparams, {"tokens": jnp.asarray(
+        tokens[:, :s])}, jcfg, PARALLEL)
+    gaps, jgaps = [], []
+    for t in range(s, s + 3):
+        step = tokens[:, t:t + 1]
+        logits, cache = spec.decode_step(model, cache,
+                                         torch.from_numpy(step), cfg)
+        jlogits, jcache = jspec.decode_step(jparams, jcache,
+                                            jnp.asarray(step), jcfg)
+        oracle, _ = spec.prefill(model, {"tokens": torch.from_numpy(
+            tokens[:, :t + 1])}, cfg)
+        gaps.append(float((logits - oracle).abs().max()))
+        jgaps.append(float(np.abs(np.asarray(jlogits)
+                                  - oracle.numpy()).max()))
+    if s % cfg.sliding_window == 0:
+        assert max(gaps) < TOL and max(jgaps) < TOL
+    else:
+        assert min(gaps) > 0.1
+        np.testing.assert_allclose(gaps, jgaps, rtol=TOL, atol=TOL)
