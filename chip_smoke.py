@@ -183,6 +183,48 @@ Phases, in order; any failure exits non-zero:
               attention widths, each step within 2e-2 * (1 + |ref|) of
               blocked_causal_attention(window=4096) over the whole
               sequence
+  15. families  the hybrid, SSM and encoder-decoder families, each model
+              freed before the next is built (weights from seed 0): (a)
+              flash_attention at zamba2's head dim 80 (the D = 128
+              instance with the tensor maps' D at 80) on the shared
+              block's q, k, v of an (8, 4096) prefill (a 6-layer zamba2)
+              and on adversarial shapes (ragged S, Sq < Skv, full, Sq =
+              1, tile edges), each held to the plain version, 3 calls
+              bit-identical, timed beside the bound, the plain version
+              and SDPA; (b) configuration 13: zamba2-2.7b at full width
+              and depth (54 layers, bf16) served as in 11 (8 x 4096, 32
+              steps, flash_attention 9 launches a prefill); (g) its state
+              handoff at 2 layers and one shared block (bf16; A_log and
+              dt_bias at -4 so the state outlives 128 steps): prefill(3968) + 128 decode
+              steps against prefill(4096), within ATTN_TOL of the row's
+              scale, and a control from zeroed SSD states missing by 5x
+              that; (c) configuration 14: zamba2 trained as in 13(a) at
+              54 layers, else 12, else 6 (out of memory or a peak above
+              75 GiB cuts it; the cut is logged), model FLOPs with the
+              chunked scan and the attention (`model_flops`), and one
+              f32 sgd step at 6 layers, 1 x 256, card vs CPU; (d)
+              configurations 15-16: xlstm-125m served (8 x 4096, 32
+              steps, no kernel launch), its f32 handoff (forget biases
+              raised; within XLSTM_HANDOFF_TOL = 3e-4, 2x the sound
+              path's reading and above the logits' response to one f32
+              rounding of the input), and
+              trained at 16 x 1024 (remat none), the sLSTM loop's share
+              of the step from the same step with the sLSTM blocks made
+              the identity, and one f32 sgd step at 2 layers, 1 x 256,
+              card vs CPU (not the loss's fall: at random init the
+              mLSTM's normaliser keeps 10 steps from moving it); (e)
+              configurations 17-18:
+              whisper-small served (8 x 1500 frames, prompt 416, 32
+              steps: the decoder's 448 positions; flash_attention 36
+              launches a prefill), the kernel timed at the encoder's
+              (8, 1500), the decoder's causal (8, 416) and the cross
+              (416 x 1500) shapes, each timed output held to the plain
+              version a batch element at a time, trained at
+              16 x 1024 frames and tokens through launch.train's loader;
+              (f) each family at full width and 2 layers card vs CPU,
+              prefill and 4 decode steps (zamba2 and whisper in bf16
+              within ATTN_TOL of the row's scale, xlstm in f32 with TF32
+              off within 1e-4)
 Then one `{"kernels": [...]}` line, and last the device line
 `{"ok": true, "device": {...}}`. Measurements also go to
 results/chip_smoke.json.
@@ -398,7 +440,8 @@ def phase_build():
     res = ptxas_resources(build.report("flash_attention").read_text())
     fa = {}
     for name, r in res.items():
-        d = 128 if "ILi128E" in name else 64 if "ILi64E" in name else None
+        m = re.search(r"ILi(\d+)EE", name)
+        d = int(m.group(1)) if m else None
         if "flash_attention_kernel" not in name or d is None:
             continue
         r["dynamic_smem"] = lib.repro_flash_attention_smem_bytes(d)
@@ -409,8 +452,9 @@ def phase_build():
             f"stores {r['spill_stores']} B, spill loads {r['spill_loads']} "
             f"B, static smem {r['smem']} B, dynamic smem "
             f"{r['dynamic_smem']} B")
-    require(sorted(fa) == ["D=128", "D=64"],
-            f"no flash_attention_kernel<64>/<128> in the ptxas report: {res}")
+    require(sorted(fa) == ["D=128", "D=64", "D=80"],
+            f"no flash_attention_kernel<64>/<80>/<128> in the ptxas report: "
+            f"{res}")
     require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                 for r in fa.values()), f"flash_attention spills: {fa}")
     require(all(r["dynamic_smem"] + r["smem"] <= SMEM_PER_BLOCK
@@ -2855,27 +2899,33 @@ def profile_window(torch, fn, n, tag):
 
 
 def serve_run(torch, dev, spec, cfg, model, batch, prompt, phase="serve",
-              label=""):
+              label="", want_fa=None, frames=None, profile_prefill=True):
     """greedy_decode of `model`, batch x prompt (numpy seed 0), 32 steps,
     with the launch counters set to 0 just before and read just after
-    (flash_attention once per layer of the prefill, or never under a
-    sliding window); then prefill and each decode step timed alone, a
-    profiled window of decode steps and a profiled prefill (tagged
-    `label`)."""
+    (flash_attention `want_fa` times a prefill; by default once per layer,
+    or never under a sliding window); then prefill and each decode step
+    timed alone, a profiled window of decode steps and (unless not
+    `profile_prefill`) a profiled prefill (tagged `label`). An
+    encoder-decoder's `frames` (numpy, (batch, S_enc, D)) go with every
+    prefill."""
     from repro_torch.kernels import ops
     from repro_torch.train import serve
 
     arch = spec.arch_id
-    want_fa = 0 if cfg.sliding_window else cfg.num_layers
+    if want_fa is None:
+        want_fa = 0 if cfg.sliding_window else cfg.num_layers
     toks_np = prompts(cfg, batch, prompt)
+    host = {"tokens": toks_np}
+    if frames is not None:
+        host["frames"] = frames
     # warm-up: cuBLAS handles and workspaces, the allocator's pools
-    serve.greedy_decode(spec, cfg, model, {"tokens": toks_np}, 2, device=dev)
+    serve.greedy_decode(spec, cfg, model, host, 2, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t = time.perf_counter()
-    toks = serve.greedy_decode(spec, cfg, model, {"tokens": toks_np},
-                               DECODE_STEPS, device=dev)
+    toks = serve.greedy_decode(spec, cfg, model, host, DECODE_STEPS,
+                               device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = ops.launch_counts()
@@ -2892,17 +2942,16 @@ def serve_run(torch, dev, spec, cfg, model, batch, prompt, phase="serve",
     require(counts["flash_attention"] == want_fa
             and sum(counts.values()) == want_fa,
             f"greedy_decode launched {counts}: expected flash_attention "
-            f"{want_fa} times (once per layer of a prefill without a "
-            "window)")
+            f"{want_fa} times (all in the prefill)")
 
     # the parts alone: prefill, then each decode step
-    tokens = torch.from_numpy(toks_np).to(dev)
+    placed = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
     prefill = serve.make_prefill_step(spec, cfg)
     decode = serve.make_decode_step(spec, cfg)
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    logits, cache = prefill(model, {"tokens": tokens})
+    logits, cache = prefill(model, placed)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     pre_counts = ops.launch_counts()
@@ -2942,8 +2991,8 @@ def serve_run(torch, dev, spec, cfg, model, batch, prompt, phase="serve",
     del cache, logits
     torch.cuda.empty_cache()
     pre_prof = profile_window(
-        torch, lambda: prefill(model, {"tokens": tokens}), 1,
-        f"{label}prefill")
+        torch, lambda: prefill(model, placed), 1, f"{label}prefill") \
+        if profile_prefill else None
     torch.cuda.empty_cache()
     return {"arch": arch, "layers": cfg.num_layers,
             "params": cfg.param_count(), "batch": batch, "prompt": prompt,
@@ -3096,7 +3145,8 @@ def _step_metrics(m):
 def _param_gap(torch, state, ref, before):
     """Per leaf: the gap max |p - p_ref| less one f32 ulp of the leaf's
     largest value (the rounding of the stored p - lr g, whatever the
-    update), over the reference's largest update max |p_ref - p_before|.
+    update), over the reference's largest update max |p_ref - p_before|
+    (0 if the gap is within the ulp and the reference's update is 0).
     Returns the worst leaf's ratio and {leaf: (ratio, gap, update)}."""
     worst, rows = 0.0, {}
     ref_p = dict(ref["params"].named_parameters())
@@ -3106,7 +3156,10 @@ def _param_gap(torch, state, ref, before):
             gap = float((p.detach().float().cpu() - r).abs().max())
             upd = float((r - before[name]).abs().max())
             ulp = float(r.abs().max()) * 2.0 ** -23
-            ratio = max(gap - ulp, 0.0) / upd
+            # a leaf whose update rounds away (lr g below an ulp of each
+            # of its values) must stay within an ulp
+            ratio = max(gap - ulp, 0.0) / upd if upd else \
+                (0.0 if gap <= ulp else float("inf"))
             rows[name] = (ratio, gap, upd)
             worst = max(worst, ratio)
     return worst, rows
@@ -3125,13 +3178,50 @@ def _agree(tag, got, want, gap, phase="train_dense"):
     return {"loss_rel": dl, "grad_norm_rel": dg, "param_gap": gap}
 
 
+def model_flops(cfg, n_flops, batch, seq):
+    """A training step's model FLOPs: 6 N tokens (N the parameters, or an
+    MoE model's active ones), plus the forward and backward (3x the
+    forward) of the products that no parameter counts: the attention
+    (4 hd FLOPs a head and visible (query, key) pair: causal self-
+    attention in each decoder layer or each invocation of zamba2's shared
+    block, whisper's encoder over its frames (as many as tokens) and its
+    cross-attention over them) and the chunked scan of the Mamba2 and
+    mLSTM blocks (chunks of L = 128: a token's scores and their product
+    with V, 2 L (dk + dv), the state's read and update, 4 dk dv, and the
+    mLSTM's normaliser, 2 L dk, a head). Returns (total, {term: FLOPs})."""
+    tokens = batch * seq
+    hd, h = cfg.resolved_head_dim, cfg.num_heads
+    causal = batch * seq * (seq + 1) // 2
+    terms = {"6N": 6 * n_flops * tokens}
+    if cfg.family == "hybrid":
+        terms["attention"] = 3 * 4 * hd * h * (
+            cfg.num_layers // cfg.attn_every) * causal
+        di = cfg.ssm_expand * cfg.d_model
+        dk, dv = cfg.ssm_state, 64
+        terms["scan"] = 3 * cfg.num_layers * (di // 64) * tokens * (
+            2 * 128 * (dk + dv) + 4 * dk * dv)
+    elif cfg.family == "ssm":
+        n_m = cfg.num_layers - (cfg.num_layers // cfg.slstm_every
+                                if cfg.slstm_every else 0)
+        dk = 2 * cfg.d_model // h
+        terms["scan"] = 3 * n_m * h * tokens * (
+            2 * 128 * (2 * dk) + 4 * dk * dk + 2 * 128 * dk)
+    elif cfg.family == "encdec":
+        terms["attention"] = 3 * 4 * hd * h * (
+            cfg.num_layers * (causal + tokens * seq)
+            + cfg.encoder_layers * tokens * seq)
+    else:
+        terms["attention"] = 3 * 4 * hd * h * cfg.num_layers * causal
+    return sum(terms.values()), terms
+
+
 def _train_main(torch, dev, arch=ARCH, num_layers=TRAIN_LAYERS,
-                phase="train_dense"):
+                phase="train_dense", batch_rows=TRAIN_BATCH, seq=TRAIN_SEQ,
+                require_learning=True, remat="full"):
     """(a) configuration 9: 10 adamw steps of yi-6b at 4 x 4096, 4 layers
-    (or of `arch` at `num_layers`). The model FLOPs count 6 N tokens, N
-    the parameters of the model, or an MoE model's active parameters
-    (`active_param_count`), plus the causal attention's forward and
-    backward."""
+    (or of `arch` at `num_layers`, batch_rows x seq). The model FLOPs are
+    `model_flops`'. Unless not `require_learning`, the first batch's
+    cross-entropy after the 10 steps must be below step 1's."""
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.kernels import ops
     from repro_torch.models import common
@@ -3140,7 +3230,7 @@ def _train_main(torch, dev, arch=ARCH, num_layers=TRAIN_LAYERS,
     spec, cfg = train_config(num_layers, arch)
     tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                      total_steps=TRAIN_STEPS, optimizer="adamw")
-    pc = ParallelConfig(remat="full")
+    pc = ParallelConfig(remat=remat)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -3150,11 +3240,11 @@ def _train_main(torch, dev, arch=ARCH, num_layers=TRAIN_LAYERS,
     n_params = sum(p.numel() for p in state["params"].parameters())
     state_bytes = torch.cuda.memory_allocated()
     step = trainer.make_train_step(spec, cfg, tc, pc)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch_rows * seq
     losses, step_ms, metrics = [], [], []
     ops.reset_launch_counts()
     batch = None
-    for batch in _lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, dev):
+    for batch in _lm_batches(cfg, batch_rows, seq, TRAIN_STEPS, dev):
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, m = step(state, batch)
@@ -3176,45 +3266,46 @@ def _train_main(torch, dev, arch=ARCH, num_layers=TRAIN_LAYERS,
     del logits
     log(f"[{phase}] the first batch's cross-entropy {metrics[0]['nll']:.6f} "
         f"at step 1, {after:.6f} after step {TRAIN_STEPS}")
-    require(after < metrics[0]["nll"],
-            f"{TRAIN_STEPS} steps did not lower the first batch's "
-            f"cross-entropy: {after} against {metrics[0]['nll']}")
     require(sum(counts.values()) == 0,
             f"training launched {counts}: its path reaches none of the "
             "four kernels")
     med = statistics.median(step_ms[2:])
-    attn = 3 * 4 * cfg.resolved_head_dim * TRAIN_BATCH * cfg.num_heads \
-        * cfg.num_layers * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
     n_flops = cfg.active_param_count() if cfg.num_experts else n_params
-    model_flops = 6 * n_flops * tokens + attn
-    tflops = model_flops / (med / 1e3) / 1e12
+    flops, terms = model_flops(cfg, n_flops, batch_rows, seq)
+    tflops = flops / (med / 1e3) / 1e12
     log(f"[{phase}] {arch} at full width cut to {cfg.num_layers} layers: "
         f"{n_params} params, {n_flops} of them counted in the model FLOPs "
         f"({state_bytes / 2 ** 30:.3f} GiB of state after "
-        f"init, {init_s:.2f} s); batch {TRAIN_BATCH} x {TRAIN_SEQ}, adamw lr "
-        f"{TRAIN_LR} warmup {TRAIN_WARMUP}, remat full")
+        f"init, {init_s:.2f} s); batch {batch_rows} x {seq}, adamw lr "
+        f"{TRAIN_LR} warmup {TRAIN_WARMUP}, remat {remat}")
     log(f"[{phase}] step ms {[round(x, 3) for x in step_ms]}; median of "
         f"steps 3-{TRAIN_STEPS} {med:.3f} ms, {tokens / med * 1e3:.1f} "
-        f"tokens/s; model FLOPs a step {model_flops:.4e} (6 N tokens "
-        f"{6 * n_flops * tokens:.4e} + causal attention fwd+bwd "
-        f"{attn:.4e}) = {tflops:.2f} TFLOP/s, {tflops / 989:.4f} of the "
+        f"tokens/s; model FLOPs a step {flops:.4e} "
+        f"({', '.join(f'{k} {v:.4e}' for k, v in terms.items())}) = "
+        f"{tflops:.2f} TFLOP/s, {tflops / 989:.4f} of the "
         f"bf16 dense peak 989 TFLOP/s (NVIDIA H100 SXM data sheet); "
         f"max_memory_allocated {peak / 2 ** 30:.3f} GiB ({peak} B)")
     log(f"[{phase}] losses {[round(x, 5) for x in losses]}; aux "
         f"{[round(m['aux'], 5) for m in metrics]}; lr "
         f"{[m['lr'] for m in metrics]}; grad norm "
         f"{[round(m['grad_norm'], 4) for m in metrics]}; launches {counts}")
+    require(after < metrics[0]["nll"] or not require_learning,
+            f"{TRAIN_STEPS} steps did not lower the first batch's "
+            f"cross-entropy: {after} against {metrics[0]['nll']}")
 
     def one_step():
         step(state, batch)
 
-    prof = profile_window(torch, one_step, 2, f"{phase} train step")
+    prof = profile_window(torch, one_step, 1 if med > 5e3 else 2,
+                          f"{phase} train step")
     out = {"arch": arch, "layers": cfg.num_layers, "params": n_params,
            "flops_params": n_flops,
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "init_s": init_s,
+           "batch": batch_rows, "seq": seq, "remat": remat,
+           "init_s": init_s,
            "state_bytes": state_bytes, "step_ms": step_ms,
            "step_ms_median": med, "tokens_per_s": tokens / med * 1e3,
-           "model_flops": model_flops, "model_tflops": tflops,
+           "model_flops": flops, "model_flops_terms": terms,
+           "model_tflops": tflops,
            "peak_share": tflops / 989, "max_memory_allocated": peak,
            "losses": losses, "metrics": metrics, "launches": counts,
            "profile": prof}
@@ -3230,15 +3321,16 @@ def _one_step(torch, state, batch, spec, cfg, tc, pc):
     return state, _step_metrics(m)
 
 
-def _train_vs_cpu(torch, dev, arch=ARCH, phase="train_dense", **changes):
-    """(b) one sgd step at full width, 1 layer, 1 x 256, on the card and
-    on the CPU from the same params carried by `convert` (of `arch`, its
-    config with `changes`)."""
+def _train_vs_cpu(torch, dev, arch=ARCH, phase="train_dense", num_layers=1,
+                  **changes):
+    """(b) one sgd step at full width, 1 layer (or `num_layers`), 1 x 256,
+    on the card and on the CPU from the same params carried by `convert`
+    (of `arch`, its config with `changes`)."""
     from repro_torch import convert
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.train import trainer
 
-    spec, cfg = train_config(1, arch, **changes)
+    spec, cfg = train_config(num_layers, arch, **changes)
     tc = TrainConfig(learning_rate=1e-2, warmup_steps=0, optimizer="sgd")
     pc = ParallelConfig()
     cpu = trainer.init_state(spec, cfg, tc, pc,
@@ -3255,7 +3347,7 @@ def _train_vs_cpu(torch, dev, arch=ARCH, phase="train_dense", **changes):
                                         batch.items()}, spec, cfg, tc, pc)
     gap, rows = _param_gap(torch, card, cpu, before)
     worst = sorted(rows.items(), key=lambda kv: -kv[1][0])[:4]
-    log(f"[{phase}] card vs CPU ({arch}, 1 layer, 1 x 256, "
+    log(f"[{phase}] card vs CPU ({arch}, {num_layers} layers, 1 x 256, "
         f"{cfg.dtype} activations; the CPU step {cpu_s:.1f} s); worst "
         f"leaves (gap less an ulp over the update, gap, update): {worst}")
     out = _agree("card vs CPU, one sgd step", got, want, gap, phase)
@@ -3564,7 +3656,7 @@ def _layer0_routing(torch, model, cfg, tokens):
 
     with torch.no_grad():
         x = common.embed_tokens(model.embed, tokens, cfg)
-        tables = transformer._rope_tables(torch.arange(
+        tables = transformer.rope_tables(torch.arange(
             tokens.shape[1], dtype=torch.int32, device=x.device), cfg)
         lp = model.layers[0]
         h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
@@ -3794,6 +3886,540 @@ def phase_moe(torch, dev, results):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the hybrid, SSM and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+ZAMBA, XLSTM, WHISPER = "zamba2-2.7b", "xlstm-125m", "whisper-small"
+FAM_TRAIN_BATCH, FAM_TRAIN_SEQ = 16, 1024      # xlstm's and whisper's
+ENC_FRAMES, WHISPER_PROMPT = 1500, 416          # 416 + 32 steps = 448
+HANDOFF_PROMPT, HANDOFF_STEPS = 3968, 128       # 3968 + 128 = PROMPT
+# xlstm's f32 handoff: 2x the sound path's reading (1.50e-4 of the row's
+# scale on the H100), above the logits' response to one f32 rounding of
+# the embedding (2.45e-4: random weights make the mLSTM's normaliser
+# |q . n| small at some positions); the zeroed-state control reads 1.35
+XLSTM_HANDOFF_TOL = 3e-4
+ZAMBA_TRAIN_DEPTHS = (54, 12, 6)               # full, then cut
+
+
+def family_model(torch, dev, arch, generator=None, **changes):
+    """`arch` at full width (its config with `changes`: a cut depth, f32
+    activations), weights from `generator` (default: one on `dev`
+    seeded SEED)."""
+    import dataclasses
+
+    from repro_torch.models import common, registry
+
+    spec = registry.get_spec(arch)
+    cfg = dataclasses.replace(spec.cfg, **changes)
+    gen = generator or torch.Generator(device=dev).manual_seed(SEED)
+    model = common.init_params(spec.model(cfg, device=gen.device), gen)
+    return spec, cfg, model
+
+
+def whisper_frames(cfg, batch, frames=ENC_FRAMES):
+    """Stub encoder frames (batch, frames, d_model) f32 from numpy seed
+    SEED + 7."""
+    return np.random.default_rng(SEED + 7).normal(
+        size=(batch, frames, cfg.d_model)).astype(np.float32)
+
+
+def _zamba_qkv(torch, model, cfg, tokens):
+    """q, k, v of the shared block's first invocation in a prefill of
+    `tokens`, as prefill makes them: the first group's mamba layers, RMS
+    norm, projections, RoPE."""
+    from repro_torch.models import common, layers, mamba, transformer
+
+    with torch.inference_mode():
+        x = common.embed_tokens(model.embed, tokens, cfg)
+        for lp in model.layers[:cfg.attn_every]:
+            x = mamba.mamba_block(lp, x, cfg)
+        sp = model.shared
+        h = layers.rms_norm(x, sp.ln1, cfg.norm_eps)
+        q = layers.project_q(sp.attn, h, cfg)
+        k, v = layers.project_kv(sp.attn, h, cfg)
+        q, k = transformer.rope(q, k, transformer.rope_tables(torch.arange(
+            tokens.shape[1], dtype=torch.int32, device=tokens.device), cfg))
+        return q, k, v
+
+
+def _whisper_qkv(torch, model, cfg, tokens, frames):
+    """The encoder's layer 0 q, k, v over the frames, the decoder's layer
+    0 self-attention q, k, v over the prompt, and its cross-attention q
+    (the prompt) with k, v of the encoded frames, as prefill makes
+    them."""
+    from repro_torch.models import common, encdec, layers
+
+    with torch.inference_mode():
+        x = encdec._positions(frames.to(common.act_dtype(cfg)), cfg)
+        lp = model.encoder[0]
+        h = layers.layer_norm(x, lp.ln1, cfg.norm_eps)
+        enc = (layers.project_q(lp.attn, h, cfg),
+               *layers.project_kv(lp.attn, h, cfg))
+        enc_out = encdec.encode(model, frames, cfg, serving=True)
+        x = encdec._positions(common.embed_tokens(model.embed, tokens, cfg),
+                              cfg)
+        lp = model.layers[0]
+        h = layers.layer_norm(x, lp.ln1, cfg.norm_eps)
+        dec = (layers.project_q(lp.attn, h, cfg),
+               *layers.project_kv(lp.attn, h, cfg))
+        x = x + layers.project_out(lp.attn,
+                                   layers.causal_self_attention(*dec))
+        h = layers.layer_norm(x, lp.lnx, cfg.norm_eps)
+        cross = (layers.project_q(lp.xattn, h, cfg),
+                 *layers.project_kv(lp.xattn, enc_out, cfg))
+        return enc, dec, cross
+
+
+def _attn_timed(torch, tag, q, k, v, causal):
+    """flash_attention at (q, k, v): the timed call's own output held to
+    the plain version one batch element at a time within ATTN_TOL * (1 +
+    |plain|), two more calls bit-identical to it; device ms and call ms
+    beside its bound, its plain version's and SDPA's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    nbytes, nflops = attn_work(q, k, causal)
+    bms, by = bound(nbytes, nflops, BF16_TC_FLOPS)
+    entry = {"name": "flash_attention", "shape": [list(q.shape),
+                                                  list(k.shape)],
+             "causal": causal, "bound_ms": bms, "bound_by": by,
+             "flops": nflops, "bytes": nbytes}
+    timed = {}
+
+    def call():
+        timed["out"] = flash_attention(q, k, v, causal=causal)
+
+    with torch.inference_mode():
+        _timed(torch, entry, call, ("flash_attention_kernel",),
+               lambda: ref.flash_attention_ref(q, k, v, causal=causal))
+        out = timed.pop("out")
+        again = [flash_attention(q, k, v, causal=causal) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(out, a) for a in again)
+        del again
+        errs = []
+        for i in range(q.shape[0]):
+            want = ref.flash_attention_ref(q[i:i + 1], k[i:i + 1],
+                                           v[i:i + 1], causal=causal)
+            d = (out[i:i + 1].float() - want.float()).abs()
+            errs.append(float(d.max()))
+            require(bool((d <= ATTN_TOL * (1 + want.float().abs())).all())
+                    and bool(torch.isfinite(out[i]).all()),
+                    f"flash_attention's timed output at {tag} disagrees "
+                    f"with its plain version at batch element {i}")
+        del out, want, d
+        log(f"[families] flash_attention timed output at {tag}: max|d| by "
+            f"batch element {[f'{e:.3e}' for e in errs]} (tol {ATTN_TOL} * "
+            f"(1 + |plain|)) ok=True; 3 calls bit-identical={same}")
+        require(same, f"flash_attention at {tag} is not bit-reproducible")
+        entry["max_abs_err"] = max(errs)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        entry["library_ms"], entry["library_call_ms"] = kernel_and_call_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal,
+                enable_gqa=q.shape[2] != k.shape[2]), ())
+    entry["tflops"] = nflops / entry["ms"] / 1e9
+    log(f"[families] flash_attention at {tag} {tuple(q.shape)} x "
+        f"{tuple(k.shape)} causal={causal}: device ms={entry['ms']:.4f} "
+        f"({entry['tflops']:.1f} TFLOP/s), plain ms={entry['plain_ms']:.4f}, "
+        f"scaled_dot_product_attention ms={entry['library_ms']:.4f}, bound "
+        f"{bms:.4f} ms ({by}: {nflops / 1e12:.4f} TFLOP, "
+        f"{nbytes / 1e9:.4f} GB); {entry['bound_ms'] / entry['ms']:.3f} of "
+        "the bound")
+    return entry
+
+
+def _attention_d80(torch, dev, results):
+    """(a) flash_attention at zamba2's head dim of 80: on the shared
+    block's first q, k, v of an (8, 4096) prefill (a 6-layer zamba2, the
+    first group, freed before the timing), and on adversarial shapes;
+    each held to the plain version; the timed (8, 4096) call's output
+    held to it one batch element at a time and 3 calls bit-identical
+    (`_attn_timed`), beside the bound, the plain version and SDPA."""
+    _, cfg, model = family_model(torch, dev, ZAMBA, num_layers=6)
+    require(cfg.resolved_head_dim == 80, f"head dim {cfg.resolved_head_dim}")
+    tokens = torch.from_numpy(prompts(cfg, SERVE_BATCH, PROMPT)).to(dev)
+    q, k, v = _zamba_qkv(torch, model, cfg, tokens)
+    del model
+    torch.cuda.empty_cache()
+    errs = []
+    rng = np.random.default_rng(SEED + 8)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+    for name, (b, sq, skv, h, causal) in {
+            "D = 80, ragged S = 1000": (2, 1000, 1000, 32, True),
+            "D = 80, Sq < Skv": (2, 300, 1000, 32, True),
+            "D = 80, causal=False": (2, 1000, 1000, 32, False),
+            "D = 80, Sq = 1": (4, 1, 4097, 32, True),
+            "D = 80, S = 65": (2, 65, 65, 32, True),
+            "D = 80, S = 129": (2, 129, 129, 32, True),
+            "D = 80, S = 4097": (1, 4097, 4097, 32, True),
+            "D = 80, (Sq, Skv) = (77, 1000), causal=False": (
+                2, 77, 1000, 32, False)}.items():
+        errs.append(_attn_case(torch, name, rand(b, sq, h, 80),
+                               rand(b, skv, h, 80), rand(b, skv, h, 80),
+                               causal))
+    entry = _attn_timed(torch, "zamba2's (8, 4096), 32 heads, D = 80", q, k,
+                        v, True)
+    entry["max_abs_err"] = max(entry["max_abs_err"], *errs)
+    results["flash_attention"]["max_abs_err"] = max(
+        results["flash_attention"]["max_abs_err"], entry["max_abs_err"])
+    del q, k, v
+    torch.cuda.empty_cache()
+    return entry
+
+
+def _pad_kv(torch, cache, slots):
+    """The cache's K/V padded with zero slots to `slots` (the prefill
+    leaves PREFILL_EXTRA of headroom; a longer decode needs more)."""
+    import torch.nn.functional as F
+
+    for name in ("k", "v"):
+        extra = slots - cache[name].shape[2]
+        if extra > 0:
+            cache[name] = F.pad(cache[name], (0, 0, 0, 0, 0, extra))
+    return cache
+
+
+def _logits_agree(torch, tag, got, want, tol, vocab):
+    """The last position's logits of the card (`got`) against `want`:
+    |d| <= tol * max|want| of the row, and the argmax equal unless the
+    top two of `want` are closer than that."""
+    got = got.float().cpu()[:, -1, :vocab]
+    want = want.float().cpu()[:, -1, :vocab]
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    d = (got - want).abs()
+    top2 = torch.topk(want, 2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) < tol * scale[:, 0]
+    same = got.argmax(-1) == want.argmax(-1)
+    ok = bool((d <= tol * scale).all()) and bool((same | tie).all())
+    rec = {"step": tag, "max_abs_err": float(d.max()),
+           "max_rel_err": float((d.amax(-1) / scale[:, 0]).max()),
+           "tol": tol, "argmax_equal": same.tolist()}
+    log(f"[families] {tag}: max|d logits| {rec['max_abs_err']:.4e}, of the "
+        f"row's max|logit| {rec['max_rel_err']:.4e} (tol {tol}); argmax "
+        f"equal {rec['argmax_equal']} ok={ok}")
+    require(ok, f"{tag}: the logits disagree")
+    return rec
+
+
+def _slow_decay(torch, model, cfg):
+    """Let the recurrent state outlive the handoff's 128 steps: zamba2's
+    A_log and dt_bias at -4 (a decay of ~e^-3.3e-4 a step, where the
+    init's ones give ~e^-3.5 and a prefill's state is gone after a few
+    steps), xlstm's mLSTM forget bias at 6 and the sLSTM's forget
+    pre-activation bias at 3."""
+    with torch.no_grad():
+        for lp in getattr(model, "layers", []):
+            lp.A_log.fill_(-4.0)
+            lp.dt_bias.fill_(-4.0)
+        for bp in getattr(model, "blocks", []):
+            if bp.kind == "kind_mlstm":
+                bp.f_bias.fill_(6.0)
+            else:
+                bp.b_gates[2].fill_(3.0)
+
+
+def _zero_states(torch, cache):
+    """The control: the cache with its recurrent states zeroed (the
+    conv tails and K/V kept)."""
+    with torch.inference_mode():
+        if "ssd" in cache:
+            cache["ssd"].zero_()
+        for bc in cache.get("blocks", []):
+            for kind, st in bc.items():
+                for name in (("S", "n") if kind == "mlstm" else
+                             ("c", "n", "h")):
+                    st[name] = torch.zeros_like(st[name])
+    return cache
+
+
+def _handoff(torch, dev, arch, dtype, tol, batch=2, **changes):
+    """(g) The state handoff on the card: `arch` at full width (`changes`
+    may cut it) in `dtype`, weights from a CPU generator seeded SEED (so
+    that the CPU can repeat the run), its decay slowed (`_slow_decay`):
+    prefill(3968) and 128 decode steps, teacher-forced, against
+    prefill(4096)'s last logits within `tol` of the row's scale (TF32
+    off). The control, the same decode from zeroed recurrent states, must
+    miss by five times the tolerance."""
+    from repro_torch.train import serve
+
+    spec, cfg, cpu = family_model(torch, "cpu", arch,
+                                  generator=torch.Generator().manual_seed(
+                                      SEED), dtype=dtype, **changes)
+    _slow_decay(torch, cpu, cfg)
+    model = spec.model(cfg, device=dev)
+    model.load_state_dict(cpu.state_dict())
+    del cpu
+    tokens = torch.from_numpy(prompts(cfg, batch, PROMPT)).to(dev)
+    prefill = serve.make_prefill_step(spec, cfg)
+    decode = serve.make_decode_step(spec, cfg)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want, _ = prefill(model, {"tokens": tokens})
+        runs = {}
+        for control in (False, True):
+            t = time.perf_counter()
+            logits, cache = prefill(
+                model, {"tokens": tokens[:, :HANDOFF_PROMPT]})
+            if "k" in cache:
+                cache = _pad_kv(torch, cache, PROMPT)
+            if control:
+                cache = _zero_states(torch, cache)
+            for i in range(HANDOFF_PROMPT, PROMPT):
+                logits, cache = decode(model, cache, tokens[:, i:i + 1])
+            torch.cuda.synchronize()
+            runs[control] = (logits, time.perf_counter() - t)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    tag = (f"{arch} {cfg.num_layers} layers ({dtype}) prefill("
+           f"{HANDOFF_PROMPT}) + {HANDOFF_STEPS} decode steps vs prefill("
+           f"{PROMPT})")
+    rec = _logits_agree(torch, tag, runs[False][0], want, tol,
+                        cfg.vocab_size)
+    lc, lw = (x.float().cpu()[:, -1, :cfg.vocab_size]
+              for x in (runs[True][0], want))
+    rec["control_max_rel_err"] = float(((lc - lw).abs().amax(-1)
+                                        / lw.abs().amax(-1)).max())
+    rec["seconds"] = runs[False][1]
+    log(f"[families] {tag}: {runs[False][1]:.2f} s; the control from zeroed "
+        f"states misses by {rec['control_max_rel_err']:.4e} of the row's "
+        f"scale")
+    require(rec["control_max_rel_err"] > 5 * tol,
+            f"{tag}: zeroed states give the same logits, so the check sees "
+            "no state")
+    del model, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _zamba_train(torch, dev):
+    """(c) configuration 14: zamba2 trained at full depth if the peak
+    stays under TRAIN_PEAK_LIMIT, else at 12 layers, then 6; then one f32
+    sgd step at 6 layers, 1 x 256, card vs CPU."""
+    main = None
+    for depth in ZAMBA_TRAIN_DEPTHS:
+        try:
+            main = _train_main(torch, dev, ZAMBA, depth, "families")
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"[families] zamba2 training at {depth} layers ran out of "
+                f"memory ({str(e)[:160]})")
+            main = None
+        if main is not None and main["max_memory_allocated"] \
+                > TRAIN_PEAK_LIMIT:
+            log(f"[families] zamba2 training at {depth} layers peaked at "
+                f"{main['max_memory_allocated'] / 2 ** 30:.3f} GiB, above "
+                "75")
+            main = None
+        torch.cuda.empty_cache()
+        if main is not None:
+            break
+    require(main is not None, "zamba2 training fits at no depth")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        vs = _train_vs_cpu(torch, dev, ZAMBA, "families", num_layers=6,
+                           dtype="float32")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"main": main, "card_vs_cpu": vs}
+
+
+def _without_slstm_ms(torch, dev, n=3):
+    """A configuration-16 train step with the sLSTM blocks made the
+    identity (`xlstm.slstm_block` patched: x plus the sum of the block's
+    parameters times 0, so that they keep a gradient), the median of `n`
+    steps
+    after a warm-up, in ms: the step less the sLSTM loop's forward and
+    backward."""
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.models import xlstm
+    from repro_torch.train import trainer
+
+    spec, cfg = train_config(12, XLSTM)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=TRAIN_STEPS, optimizer="adamw")
+    pc = ParallelConfig(remat="none")
+    state = _train_state(torch, spec, cfg, tc, pc, dev)
+    step = trainer.make_train_step(spec, cfg, tc, pc)
+    batch = list(_lm_batches(cfg, FAM_TRAIN_BATCH, FAM_TRAIN_SEQ, 1, dev))[0]
+    real = xlstm.slstm_block
+
+    def identity(p, x, cfg, return_state=False):
+        # the block's parameters stay in the graph, with zero gradients
+        return x + sum((t * 0.0).sum() for t in p.parameters())
+
+    xlstm.slstm_block = identity
+    times = []
+    try:
+        for _ in range(n + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    finally:
+        xlstm.slstm_block = real
+    del state
+    torch.cuda.empty_cache()
+    return statistics.median(times[1:])
+
+
+def _xlstm_train(torch, dev):
+    """(d) configuration 16: xlstm-125m trained at 16 x 1024, adamw, 10
+    steps, remat none (it fits, and a recompute would replay the sLSTM
+    loop); the sLSTM loop's share of the step from the same step with
+    the sLSTM blocks made the identity; one f32 sgd step at 2 layers,
+    1 x 256, card vs CPU. At random init the mLSTM's normaliser
+    |q . n| is small at some positions, the gradient norms are in the
+    thousands, and 10 steps at lr 3e-4 barely move the first batch's
+    cross-entropy either way: the card-vs-CPU step, not the loss's fall,
+    is what is required of the training path."""
+    main = _train_main(torch, dev, XLSTM, 12, "families", FAM_TRAIN_BATCH,
+                       FAM_TRAIN_SEQ, require_learning=False, remat="none")
+    rest_ms = _without_slstm_ms(torch, dev)
+    share = 1 - rest_ms / main["step_ms_median"]
+    log(f"[families] xlstm-125m train step with the sLSTM blocks made the "
+        f"identity: {rest_ms:.3f} ms against {main['step_ms_median']:.3f}; "
+        f"the sLSTM loop's share of the step {share:.4f}")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        vs = _train_vs_cpu(torch, dev, XLSTM, "families", num_layers=2,
+                           dtype="float32")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"main": main, "without_slstm_ms": rest_ms, "slstm_share": share,
+            "card_vs_cpu": vs}
+
+
+def _family_vs_cpu(torch, dev, arch, dtype, prompt, **changes):
+    """(f) `arch` at full width and few layers, the same weights and
+    tokens on the card and the CPU: prefill and 4 decode steps (the
+    card's greedy tokens fed to both); bf16 within ATTN_TOL of the row's
+    scale where the kernel is on the path, f32 (TF32 off) within
+    F32_LOGIT_TOL where it is not."""
+    from repro_torch.kernels import ops
+
+    spec, cfg, cpu = family_model(torch, "cpu", arch,
+                                  generator=torch.Generator().manual_seed(
+                                      SEED), dtype=dtype, **changes)
+    card = spec.model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    host = {"tokens": prompts(cfg, 2, prompt)}
+    if cfg.family == "encdec":
+        host["frames"] = whisper_frames(cfg, 2)
+    tol = F32_LOGIT_TOL if dtype == "float32" else ATTN_TOL
+    out = {"steps": []}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ops.reset_launch_counts()
+        lc, cc = spec.prefill(card, {k: torch.from_numpy(v).to(dev)
+                                     for k, v in host.items()}, cfg)
+        out["launches"] = ops.launch_counts()
+        lh, ch = spec.prefill(cpu, {k: torch.from_numpy(v)
+                                    for k, v in host.items()}, cfg)
+        tag = f"{arch} {cfg.num_layers} layers {dtype} card vs CPU"
+        out["steps"].append(_logits_agree(torch, f"{tag}, prefill", lc, lh,
+                                          tol, cfg.vocab_size))
+        tok = torch.argmax(lc[:, -1], dim=-1)[:, None].to(torch.int32)
+        for i in range(4):
+            lc, cc = spec.decode_step(card, cc, tok, cfg)
+            lh, ch = spec.decode_step(cpu, ch, tok.cpu(), cfg)
+            out["steps"].append(_logits_agree(
+                torch, f"{tag}, decode step {i + 1}", lc, lh, tol,
+                cfg.vocab_size))
+            tok = torch.argmax(lc[:, -1], dim=-1)[:, None].to(torch.int32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"[families] {arch} card vs CPU: prefill launches "
+        f"{out['launches']}")
+    del card, cc
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(torch, dev, results):
+    """The hybrid, SSM and encoder-decoder families, each model freed
+    before the next is built: (a) flash_attention at D = 80; (b), (c)
+    zamba2 served (configuration 13) and trained (14); (d) xlstm-125m
+    served (15) and trained (16); (e) whisper-small served (17) and
+    trained (18); (f) card vs CPU for each; (g) the state handoff of
+    zamba2 and xlstm (after (b) and (d))."""
+    out = {"attention_d80": _attention_d80(torch, dev, results)}
+
+    spec, cfg, model = family_model(torch, dev, ZAMBA)
+    log(f"[families] zamba2-2.7b at full width and depth: "
+        f"{sum(p.numel() for p in model.parameters())} params, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    out["zamba_serve"] = serve_run(
+        torch, dev, spec, cfg, model, SERVE_BATCH, PROMPT, "families",
+        "zamba2-2.7b ", want_fa=cfg.num_layers // cfg.attn_every)
+    del model
+    torch.cuda.empty_cache()
+    # bf16 (the kernel's dtype) at 2 mamba layers and one shared block:
+    # the gap that bf16 rounding alone leaves between the chunked prefill
+    # and the step recurrence grows with depth (1.55e-2-1.69e-2 of the
+    # row's scale at 6 layers, against ATTN_TOL)
+    out["zamba_handoff"] = _handoff(torch, dev, ZAMBA, "bfloat16", ATTN_TOL,
+                                    num_layers=2, attn_every=2)
+    out["zamba_train"] = _zamba_train(torch, dev)
+
+    spec, cfg, model = family_model(torch, dev, XLSTM)
+    out["xlstm_serve"] = serve_run(
+        torch, dev, spec, cfg, model, SERVE_BATCH, PROMPT, "families",
+        "xlstm-125m ", want_fa=0, profile_prefill=False)
+    del model
+    torch.cuda.empty_cache()
+    out["xlstm_handoff"] = _handoff(torch, dev, XLSTM, "float32",
+                                    XLSTM_HANDOFF_TOL)
+    out["xlstm_train"] = _xlstm_train(torch, dev)
+
+    spec, cfg, model = family_model(torch, dev, WHISPER)
+    frames = whisper_frames(cfg, SERVE_BATCH)
+    out["whisper_serve"] = serve_run(
+        torch, dev, spec, cfg, model, SERVE_BATCH, WHISPER_PROMPT,
+        "families", "whisper-small ",
+        want_fa=3 * cfg.num_layers, frames=frames)
+    tokens = torch.from_numpy(prompts(cfg, SERVE_BATCH, WHISPER_PROMPT)).to(
+        dev)
+    enc, dec, cross = _whisper_qkv(torch, model, cfg, tokens,
+                                   torch.from_numpy(frames).to(dev))
+    del model
+    torch.cuda.empty_cache()
+    out["attention_whisper"] = {
+        "encoder": _attn_timed(torch, "whisper's encoder (8, 1500)", *enc,
+                               False),
+        "decoder": _attn_timed(torch, "whisper's decoder (8, 416)", *dec,
+                               True),
+        "cross": _attn_timed(torch, "whisper's cross (416 x 1500)", *cross,
+                             False)}
+    results["flash_attention"]["max_abs_err"] = max(
+        results["flash_attention"]["max_abs_err"],
+        *(e["max_abs_err"] for e in out["attention_whisper"].values()))
+    del enc, dec, cross
+    torch.cuda.empty_cache()
+    out["whisper_train"] = _train_main(torch, dev, WHISPER, 12, "families",
+                                       FAM_TRAIN_BATCH, FAM_TRAIN_SEQ)
+
+    out["card_vs_cpu"] = {
+        ZAMBA: _family_vs_cpu(torch, dev, ZAMBA, "bfloat16", 256,
+                              num_layers=2, attn_every=2),
+        XLSTM: _family_vs_cpu(torch, dev, XLSTM, "float32", 256,
+                              num_layers=2),
+        WHISPER: _family_vs_cpu(torch, dev, WHISPER, "bfloat16", 64,
+                                num_layers=2, encoder_layers=2)}
+    return out
+
+
 def main():
     import torch
 
@@ -3836,6 +4462,7 @@ def main():
     dense_parity = phase_dense_parity(torch, dev)
     train_dense = phase_train_dense(torch, dev)
     moe = phase_moe(torch, dev, results)
+    families = phase_families(torch, dev, results)
 
     kernels = [results[name] for name in ("sigmoid_grad",
                                           "segment_sum_sorted",
@@ -3851,7 +4478,7 @@ def main():
          "multirank": multirank, "p8": p8,
          "parity": parity, "sparse_serve": sparse_serve, "serve": served,
          "dense_parity": dense_parity, "train_dense": train_dense,
-         "moe": moe},
+         "moe": moe, "families": families},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))

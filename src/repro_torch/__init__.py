@@ -17,10 +17,11 @@ for module and never imports it. What it covers today:
 - sparse serving (`serve`): `DPMRServeEngine` over a resident state,
   with the micro-batcher and the Zipf-head cache, at one rank or at P
   (rank 0 the front, the others followers), and `launch.serve --sparse`;
-- the dense face's serving path: prefill and greedy decode of the dense
-  and vlm models (yi-6b, granite-8b, granite-34b, llama3-405b,
-  chameleon-34b; `models.registry`, `train.serve.greedy_decode`,
-  `launch.serve`);
+- the dense face's serving path: prefill and greedy decode of every
+  model family of the reference: dense and vlm (yi-6b, granite-8b,
+  granite-34b, llama3-405b, chameleon-34b), MoE (phi3.5-moe, mixtral),
+  the zamba2 hybrid, xlstm and the whisper encoder-decoder
+  (`models.registry`, `train.serve.greedy_decode`, `launch.serve`);
 - the dense trainer on one card (`train.trainer`, `launch.train --arch`):
   the training forward under autograd and remat, the dense optimizers,
   microbatches and clipping, checkpoints in the reference's tree, and

@@ -78,8 +78,10 @@ def _tree(state) -> dict:
 
 
 def _dict_path(path: tuple) -> str:
-    # the string of the reference's key path for a dict leaf
-    keys = [f"DictKey(key='{k}')" for k in path]
+    # the string of the reference's key path for a leaf of dicts (and
+    # tuples: an int key is a tuple's index)
+    keys = [f"SequenceKey(idx={k})" if isinstance(k, int)
+            else f"DictKey(key='{k}')" for k in path]
     return f"({keys[0]},)" if len(keys) == 1 else f"({', '.join(keys)})"
 
 

@@ -9,9 +9,9 @@ one is an error rather than silently ignored.
 
 `ModelConfig` is the counterpart of `repro.configs.base.ModelConfig` (the
 dense face), with all of its fields, defaults and parameter counts; the
-port serves and trains the `dense`, `vlm` and `moe` families (MoE
-experts, a sliding window), and `configs.get_config` refuses the ids of
-the families it does not run yet.
+port serves and trains every family of the reference: `dense`, `vlm`,
+`moe` (experts, a sliding window), `hybrid` (zamba2), `ssm` (xlstm) and
+`encdec` (whisper).
 
 `ParallelConfig` and `TrainConfig` are copies of the reference's, field
 for field. On one card the trainer reads `remat`, `microbatches` and

@@ -10,10 +10,13 @@ replicated ones whole. `state_to_numpy` goes the other way, gathering the
 blocks of every rank. The same state then gives the same steps in both
 packages, up to f32 rounding.
 
-`params_from_numpy` takes the reference's dense params pytree as nested
-dicts of numpy arrays (layers stacked on a leading axis, as
-`repro.sharding.init_from_defs` makes them) and builds the port's
-`Transformer` on `device`; `params_to_numpy` goes the other way. For
+`params_from_numpy` takes the reference's params pytree of any family
+as nested dicts (and, for xlstm's blocks, a tuple) of numpy arrays
+(layers stacked on a leading axis, as `repro.sharding.init_from_defs`
+makes them: the decoder's `layers`, zamba2's mamba `layers` beside its
+one `shared` block, whisper's `encoder` and `layers`) and builds the
+port's model of that family on `device`; `params_to_numpy` goes the
+other way. For
 serving, matrices are cast to `cfg.dtype` on the way in, as the reference
 casts them at every use, so the round trip is exact when `cfg.dtype` is
 float32 and rounds the matrices to `cfg.dtype` otherwise; a model for
@@ -26,8 +29,9 @@ params as above, the optimizer's moments in trees of the params' shape
 (adam's `m` and `v`, momentum's `mu`) beside adam's `count`, and the
 step. `train_state_tree` is that tree over the live tensors (a stacked
 leaf as the list of its layers' tensors), and `tree_leaves` walks a tree
-in the reference's leaf order (`jax.tree.flatten` sorts dict keys), which
-is how `ckpt.checkpointer` writes a dense checkpoint.
+in the reference's leaf order (`jax.tree.flatten` sorts dict keys and
+keeps a tuple's order), which is how `ckpt.checkpointer` writes a dense
+checkpoint.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dpmr import DPMRState, num_shards
 from repro_torch.launch.mesh import mesh_rank
-from repro_torch.models import transformer
+from repro_torch.models import registry
 from repro_torch.runtime.multiprocess import host_value
 
 _DTYPES = (np.float32, np.float32, np.int32, np.float32, np.float32,
@@ -76,14 +80,22 @@ def state_to_numpy(state: DPMRState, mesh=None) -> tuple[np.ndarray, ...]:
                  for name, t in zip(DPMRState._fields, state, strict=True))
 
 
-def _pairs(model: transformer.Transformer):
+def _pairs(model):
     """(name in `named_parameters`, path in the reference's tree, layer
-    index or None) of every parameter."""
-    for i, layer in enumerate(model.layers):
-        for name, _ in layer.named_parameters():
-            yield f"layers.{i}.{name}", ("layers", *name.split(".")), i
-    for name, _ in model.named_parameters(recurse=False):
-        yield name, (name,), None
+    index or None) of every parameter. A layer of a stack (`model.STACKS`:
+    the reference stacks its leaves on a leading axis) gives its index; a
+    block of xlstm's tuple of blocks gives the path (blocks, i, its kind,
+    ...)."""
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] in model.STACKS:
+            yield name, (parts[0], *parts[2:]), int(parts[1])
+        elif parts[0] == "blocks":
+            i = int(parts[1])
+            yield name, ("blocks", i, model.blocks[i].kind, *parts[2:]), \
+                None
+        else:
+            yield name, tuple(parts), None
 
 
 def _get(tree, path):
@@ -95,30 +107,31 @@ def _get(tree, path):
 def _fill(model, tree: dict, values: dict, cfg: ModelConfig) -> None:
     """Copy the reference-shaped numpy `tree` into `values` (name ->
     tensor of `model`'s parameter names), checking every shape."""
-    defs = transformer.transformer_defs(cfg)
+    defs = model.defs(cfg)
     with torch.no_grad():
         for name, path, i in _pairs(model):
             leaf = np.asarray(_get(tree, path), dtype=np.float32)
             if leaf.shape != _get(defs, path):
-                raise ValueError(f"{'/'.join(path)}: shape {leaf.shape}, "
+                keys = "/".join(map(str, path))
+                raise ValueError(f"{keys}: shape {leaf.shape}, "
                                  f"{cfg.name} needs {_get(defs, path)}")
             values[name].copy_(torch.tensor(leaf if i is None else leaf[i]))
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device,
-                      train: bool = False) -> transformer.Transformer:
-    """The port's model from the reference's params tree (copied), for
-    serving or, with `train=True`, for training."""
-    model = transformer.Transformer(cfg, device=device, train=train)
+                      train: bool = False):
+    """The port's model of `cfg`'s family from the reference's params
+    tree (copied), for serving or, with `train=True`, for training."""
+    model = registry.model_class(cfg)(cfg, device=device, train=train)
     _fill(model, tree, dict(model.named_parameters()), cfg)
     return model
 
 
-def params_tree(model: transformer.Transformer,
-                values: dict | None = None) -> dict:
+def params_tree(model, values: dict | None = None) -> dict:
     """The reference's params tree over live tensors: `values` (name ->
     tensor, default the model's parameters) at their paths, a stacked
-    leaf as the list of its layers' tensors in layer order."""
+    leaf as the list of its layers' tensors in layer order, xlstm's
+    blocks as a tuple."""
     values = dict(model.named_parameters()) if values is None else values
     tree: dict = {}
     for name, path, i in _pairs(model):
@@ -129,6 +142,9 @@ def params_tree(model: transformer.Transformer,
             node[path[-1]] = values[name]
         else:
             node.setdefault(path[-1], []).append(values[name])
+    if "blocks" in tree:
+        tree["blocks"] = tuple(tree["blocks"][i]
+                               for i in range(len(tree["blocks"])))
     return tree
 
 
@@ -140,12 +156,16 @@ def _to_numpy(leaf, dtype=None) -> np.ndarray:
     return leaf.detach().to("cpu", dtype or leaf.dtype, copy=True).numpy()
 
 
-def _map(tree: dict, fn) -> dict:
-    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def _map(tree, fn):
+    """`fn` on every leaf of a tree of dicts and tuples."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map(v, fn) for v in tree)
+    return fn(tree)
 
 
-def params_to_numpy(model: transformer.Transformer) -> dict:
+def params_to_numpy(model) -> dict:
     """The model's parameters as the reference's tree of f32 numpy arrays,
     layers stacked on a leading axis."""
     return _map(params_tree(model),
@@ -161,12 +181,14 @@ def train_state_tree(state: dict) -> dict:
     return {"params": params_tree(model), "opt": opt, "step": state["step"]}
 
 
-def tree_leaves(tree: dict, prefix: tuple = ()):
+def tree_leaves(tree, prefix: tuple = ()):
     """(path, leaf) in `jax.tree.flatten`'s order: dict keys sorted at
-    every level."""
-    for key in sorted(tree):
-        node = tree[key]
-        if isinstance(node, dict):
+    every level, a tuple's items in order (their indices in the path). A
+    list is a leaf (a stacked leaf's layers)."""
+    items = enumerate(tree) if isinstance(tree, tuple) else \
+        ((key, tree[key]) for key in sorted(tree))
+    for key, node in items:
+        if isinstance(node, (dict, tuple)):
             yield from tree_leaves(node, (*prefix, key))
         else:
             yield (*prefix, key), node

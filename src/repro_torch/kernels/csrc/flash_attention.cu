@@ -38,8 +38,8 @@
 //   each, so the next item's q and first tiles load while the consumers
 //   finish the last item. The tensor maps read (B, S, H, D) in place
 //   from the caller's strides ({D, H, S, B}, boxes of 64 x 1 x 128 x 1: a
-//   D = 128 row is two boxes), swizzled by 128 bytes, and zero-fill rows
-//   past S. It keeps 24 registers (`setmaxnreg`) and gives the rest to the
+//   D = 128 row is two boxes, a D = 80 row two boxes whose columns past
+//   80 read as 0), swizzled by 128 bytes, and zero-fill rows past S. It keeps 24 registers (`setmaxnreg`) and gives the rest to the
 //   consumers.
 // - Warpgroups 1 and 2 are consumers, 240 registers each, 64 query rows
 //   each (one `wgmma` M). S = q K^T is `wgmma.mma_async` m64n128k16 with
@@ -62,6 +62,11 @@
 //   and the two consumers take turns to issue (named barriers), so that
 //   one's softmax runs while the other's products hold the tensor cores.
 // Shared memory at D = 128: 2 x q 32 KB + 2 stages x (K 32 KB + V 32 KB).
+// Head dim 80 (zamba2's 2560 / 32) runs in D = 128's tiles: the scores
+// take its 5 k-steps of 16 columns; P V computes 128 columns (m64n128k16,
+// as at D = 128; V's columns past 80 are TMA's zeros) and the epilogue
+// stores 80. That is 1.3x the tensor-core work of an exact-D design
+// (q K^T exact, P V at 128 / 80), for one more instance of the template.
 // No atomics, and an item's arithmetic does not depend on which block takes
 // it: the result does not depend on timing.
 #include <cuda.h>
@@ -90,9 +95,21 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 static_assert(kTileQ == 128 && kTileK == 128, "boxes are 128 rows");
 
+// Head dims: 64 and 128, and 80 (zamba2) in the tiles of 128. A tile
+// holds kPanels boxes of 64 columns; at D = 80 the tensor maps' global D
+// is 80, so TMA fills columns 80..127 of the second box with zeros, the
+// scores take only the 5 k-steps of columns 0..79, O += P V computes 128
+// columns of which the epilogue stores the first 80.
+template <int D>
+struct Dims {
+  static constexpr int kPanels = (D + kBox - 1) / kBox;
+  static constexpr int kPad = kPanels * kBox;   // O's columns in registers
+  static_assert(D % 16 == 0 && kPad <= 128, "D: a multiple of 16, <= 128");
+};
+
 template <int D>
 struct Smem {
-  static constexpr uint32_t kTile = (D / kBox) * kPanelBytes;  // q, K or V
+  static constexpr uint32_t kTile = Dims<D>::kPanels * kPanelBytes;  // q, K, V
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kK = kQ + kQStages * kTile;
   static constexpr uint32_t kV = kK + kStages * kTile;
@@ -312,7 +329,7 @@ __device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t q_c,
 // O += P V for a tile of 128 keys: keys 16 kk .. 16 kk + 15 are
 // p[4 kk .. 4 kk + 3]; V is [keys][D], read MN-major. Issued, not waited.
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+__device__ __forceinline__ void issue_pv(float (&o)[Dims<D>::kPad / 2],
                                          const uint32_t (&p)[32],
                                          uint32_t v_t) {
   wgmma_fence();
@@ -320,7 +337,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
   for (int kk = 0; kk < kTileK / 16; ++kk) {
     const uint64_t dv =
         smem_desc(v_t + kk * 16 * kRowBytes, kPanelBytes, kGroupBytes);
-    if constexpr (D == 128)
+    if constexpr (Dims<D>::kPad == 128)
       wgmma_rs_n128(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                     p[4 * kk + 3], dv, 1);
     else
@@ -418,7 +435,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                        __nv_bfloat16* __restrict__ out, int B, int Sq,
                        int Skv, int H, int KH, float scale2, int causal) {
   using L = Smem<D>;
-  constexpr int kPanels = D / kBox;
+  constexpr int kPanels = Dims<D>::kPanels;
+  constexpr int kPad = Dims<D>::kPad;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_addr(smem) + 1023u) & ~1023u;
   const uint32_t q_s = base + L::kQ, k_s = base + L::kK, v_s = base + L::kV;
@@ -522,7 +540,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x - 128 * wg;
   const int lane = tid % 32;
   const int col = 2 * (lane % 4);
-  float o[D / 2];
+  float o[kPad / 2];
   float sc[64];
   uint32_t p[32];
   if (c == 1) turn_pass(1);   // consumer 0 issues first
@@ -534,7 +552,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int first = q0 + 64 * c;
     const int row0 = first + 16 * (tid / 32) + lane / 4;   // and row0 + 8
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    for (int j = 0; j < kPad / 2; ++j) o[j] = 0.f;
     RowState st;
     const int qs = round % kQStages;
     const uint32_t q_c = q_s + qs * L::kTile + 64 * c * kRowBytes;
@@ -580,8 +598,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_arrive(v_empty + 8 * sv);
     g += n;
 
-    // out = O / l for the thread's rows inside Sq; out is (B, Sq, H, D)
-    // dense
+    // out = O / l for the thread's rows inside Sq and its columns inside
+    // D (of O's kPad); out is (B, Sq, H, D) dense
     float l0 = st.l0, l1 = st.l1;
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -592,7 +610,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     __nv_bfloat16* o0 = out + (((long long)b * Sq + row0) * H + h) * D + col;
     __nv_bfloat16* o1 = o0 + 8LL * H * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {   // columns 8 j + col + {0, 1} < D
       if (row0 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
             __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
@@ -700,6 +718,9 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
   if (D == 64)
     return launch<64>(q, k, v, out, B, Sq, Skv, H, KH, strides, scale, causal,
                       s);
+  if (D == 80)
+    return launch<80>(q, k, v, out, B, Sq, Skv, H, KH, strides, scale,
+                      causal, s);
   if (D == 128)
     return launch<128>(q, k, v, out, B, Sq, Skv, H, KH, strides, scale,
                        causal, s);
@@ -710,6 +731,7 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
 // no instance of).
 extern "C" int repro_flash_attention_smem_bytes(int D) {
   if (D == 64) return (int)Smem<64>::kBytes;
+  if (D == 80) return (int)Smem<80>::kBytes;
   if (D == 128) return (int)Smem<128>::kBytes;
   return 0;
 }

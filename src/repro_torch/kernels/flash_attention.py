@@ -3,7 +3,8 @@
 Replaces the Pallas TPU kernel `repro.kernels.flash_attention.
 flash_attention`: causal (or full) GQA attention forward with an online
 softmax, in the (B, S, H, D) layout. The port's prefill runs it for every
-layer's self-attention, where the reference's dense prefill runs the XLA
+layer's self-attention (and whisper's encoder and cross-attention, not
+causal), where the reference's dense prefill runs the XLA
 online softmax `layers.blocked_causal_attention` that the Pallas kernel
 stands in for on a TPU. The source note in the `.cu` file says what bounds
 it on the card (tensor-core operations) and what the design does.
@@ -16,7 +17,8 @@ device: such rows would see no key, and no path makes one.
 On CPU tensors the wrapper computes the plain version
 (`ref.flash_attention_ref`); on CUDA tensors it launches the kernel, or
 raises on inputs the kernel does not take: bf16 only (f32 raises
-`TypeError`), D in {64, 128}, a dense head dim, strides that are
+`TypeError`), D in {64, 80, 128} (80 is zamba2's, computed in the tiles
+of 128), a dense head dim, strides that are
 multiples of 8 and a 16-byte aligned base (what the kernel's TMA tensor
 maps take).
 `launches` counts launches.
@@ -31,7 +33,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 launches = 0
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -63,6 +63,11 @@ def serve_dense(args) -> torch.Tensor:
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
                                     size=(args.batch, args.prompt_len))}
+    if cfg.family == "encdec":
+        # stub frame embeddings, one a prompt position, as the reference
+        # draws them
+        batch["frames"] = rng.normal(size=(
+            args.batch, args.prompt_len, cfg.d_model)).astype(np.float32)
     t0 = time.perf_counter()
     toks = serve.greedy_decode(spec, cfg, model, batch, args.decode_steps,
                                device=dev)
@@ -192,7 +197,8 @@ def run_sparse(args, device, mesh=None) -> dict | None:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", help="dense model id (repro_torch.configs)")
+    ap.add_argument("--arch", help="model zoo id (repro_torch.configs; "
+                                   "rejected under --sparse)")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="reduced same-family config (--no-smoke = full)")

@@ -12,11 +12,12 @@ card) and the sparse face (`--sparse`, one process a rank).
         -m repro_torch.launch.train --sparse --ckpt /tmp/sck  # the card
     # kill either mid-run and rerun the same command: it resumes from --ckpt
 
-Dense mode (`train_loop`) wires the model zoo (`--arch`, `--smoke` for
-the reduced same-family config), the one-card trainer
+Dense mode (`train_loop`) wires the model zoo (`--arch`, any family;
+`--smoke` for the reduced same-family config), the one-card trainer
 (`train.trainer.make_train_step`: `--optimizer`, `--lr`, `--warmup`,
 `--microbatches`), an `lm_markov` stream (`--batch` x `--seq` tokens,
-`--data-seed`) behind a prefetching `ShardedLoader` pinned to host 0 of
+`--data-seed`; an encoder-decoder also gets `--seq` stub frames a row)
+behind a prefetching `ShardedLoader` pinned to host 0 of
 1, checkpoints (`--ckpt`, `--save-every`, `--keep`, `--async-ckpt`) that
 carry the model, the optimizer and the loader's cursor, a
 `PreemptionGuard` (SIGTERM: save and stop; `--no-preemption-guard`) and
@@ -89,13 +90,16 @@ DENSE_BATCH, SPARSE_BATCH = 8, 256    # --batch's default in each mode
 
 
 def make_loader(args, cfg, device) -> ShardedLoader:
-    """The dense trainer's data plane: an `lm_markov` source behind a
-    prefetching loader that puts whole batches on `device`, pinned to one
-    stream (host 0 of 1), as the reference's."""
+    """The dense trainer's data plane: an `lm_markov` source (with stub
+    encoder frames for an encoder-decoder) behind a prefetching loader
+    that puts whole batches on `device`, pinned to one stream (host 0 of
+    1), as the reference's."""
     source = get_source("lm_markov", vocab_size=cfg.vocab_size,
                         seq_len=args.seq,
                         batch_size=args.batch or DENSE_BATCH,
-                        seed=args.data_seed)
+                        seed=args.data_seed,
+                        encdec_d_model=cfg.d_model
+                        if cfg.family == "encdec" else 0)
     return ShardedLoader(source, device=device, placement="device",
                          host_index=0, num_hosts=1, prefetch=args.prefetch)
 
@@ -281,8 +285,10 @@ def train_sparse(args, device) -> dict:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", help="model zoo id (dense face; required "
-                                   "unless --sparse)")
+    ap.add_argument("--arch", help="model zoo id of any family (dense, "
+                                   "vlm, moe, hybrid, ssm, encdec; the "
+                                   "dense face; required unless "
+                                   "--sparse)")
     ap.add_argument("--sparse", action="store_true",
                     help="train the DPMR sparse face (DPMREngine over a "
                          "zipf_sparse loader) instead of a zoo model")
@@ -358,8 +364,8 @@ def main(argv=None):
     if not args.sparse:
         if not args.arch:
             ap.error("--arch is required (or pass --sparse): a model zoo "
-                     "id of the dense, vlm or moe family (the reference's "
-                     "other families are ROADMAP A12)")
+                     "id of the dense, vlm, moe, hybrid, ssm or encdec "
+                     "family")
         if int(os.environ.get("WORLD_SIZE", "1")) > 1:
             ap.error("the dense trainer is one process on one card; over "
                      "several ranks it is ROADMAP A12 (Distribution)")

@@ -1,3 +1,5 @@
-"""Model code of the port: the dense, vlm and MoE families (mixtral with
-its sliding window), served (prefill and greedy decode) and trained.
-SSM, hybrid and encoder-decoder models are ROADMAP A12."""
+"""Model code of the port: every family of the reference, served
+(prefill and greedy decode) and trained: dense, vlm and MoE
+(`transformer`, `moe`; mixtral with its sliding window), the zamba2
+hybrid (`mamba`, `ssm_common`), xLSTM (`xlstm`) and the whisper-style
+encoder-decoder (`encdec`)."""

@@ -9,7 +9,9 @@ embedding, the LM head, the projections, the MLP). A model built for
 serving stores its matrices in the activation dtype (`cfg.dtype`), which
 gives the same values as one cast at load, so the casts at use are the
 identity and copy nothing; its norm scales (every 1-D leaf) stay f32, as
-the reference's norms read them.
+the reference's norms read them, and so do the few matrices the
+reference reads in f32 (the SSM blocks' convolution taps, the sLSTM's
+gate weights).
 """
 from __future__ import annotations
 
@@ -41,16 +43,19 @@ def embed_defs(cfg: ModelConfig) -> dict:
 
 
 def add_params(module: nn.Module, defs: dict, cfg: ModelConfig,
-               device, train: bool = False) -> None:
+               device, train: bool = False, keep_f32=()) -> None:
     """Register one uninitialised parameter per `defs` entry (name ->
     shape). For training: every leaf in `cfg.param_dtype` with
-    `requires_grad=True`; for serving: 1-D leaves (norm scales) in f32,
-    the rest in `cfg.dtype`, no grad."""
+    `requires_grad=True`; for serving: 1-D leaves (norm scales) and the
+    leaves named in `keep_f32` (those the reference reads in f32, such as
+    a convolution's taps) in f32, the rest in `cfg.dtype`, no grad."""
     for name, shape in defs.items():
         if train:
             dtype = getattr(torch, cfg.param_dtype)
+        elif len(shape) == 1 or name in keep_f32:
+            dtype = torch.float32
         else:
-            dtype = torch.float32 if len(shape) == 1 else act_dtype(cfg)
+            dtype = act_dtype(cfg)
         module.register_parameter(name, nn.Parameter(
             torch.empty(shape, dtype=dtype, device=device),
             requires_grad=train))

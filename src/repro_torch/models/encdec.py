@@ -1,0 +1,236 @@
+"""The whisper-style encoder-decoder (counterpart of `repro.models.encdec`).
+
+The audio frontend is a stub, as in the reference: the encoder takes
+precomputed frame embeddings (B, S_enc, D). No RoPE; sinusoidal absolute
+positions are added on both sides, and the norms are LayerNorms without
+a bias.
+
+`EncDec` holds the parameters: `encoder`, one `transformer.Params` a
+layer (`attn`, `mlp`, `ln1`, `ln2`), `ln_enc`, `layers`, one a
+layer (`attn`, `xattn`, `mlp`, `ln1`, `lnx`, `ln2`), `embed`, `ln_f`,
+`unembed`; the reference stacks each side's layers on a leading axis.
+
+`forward` is training's forward over {frames, tokens}: the encoder's and
+the cross-attention's blocked non-causal attention and the decoder's
+blocked causal one, each layer under `ParallelConfig.remat`. `prefill`
+encodes the frames and runs the decoder over the prompt; on the card its
+attention is the `flash_attention` kernel, three launches a layer: the
+encoder's self-attention (non-causal), the decoder's causal
+self-attention and its cross-attention (non-causal, the prompt's
+queries against the frames' keys). The cache holds the decoder's
+self-K/V (L, B, S + PREFILL_EXTRA, KH, hd), the cross-K/V over the
+encoded frames (L, B, S_enc, KH, hd) and `length`; `decode_step` writes
+its self-K/V slot IN PLACE.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import common, layers, transformer
+
+ENC_FRAMES = 1500     # whisper's 30 s window of encoder frames
+
+
+def _enc_defs(cfg: ModelConfig) -> dict:
+    return {"attn": layers.attn_defs(cfg), "mlp": layers.mlp_defs(cfg),
+            "ln1": (cfg.d_model,), "ln2": (cfg.d_model,)}
+
+
+def _dec_defs(cfg: ModelConfig) -> dict:
+    return {"attn": layers.attn_defs(cfg), "xattn": layers.attn_defs(cfg),
+            "mlp": layers.mlp_defs(cfg), "ln1": (cfg.d_model,),
+            "lnx": (cfg.d_model,), "ln2": (cfg.d_model,)}
+
+
+def encdec_defs(cfg: ModelConfig) -> dict:
+    """Parameter shapes in the reference's tree, each side's layers
+    stacked on a leading axis."""
+    return {"encoder": transformer.stack_defs(_enc_defs(cfg),
+                                              cfg.encoder_layers),
+            "ln_enc": (cfg.d_model,),
+            "layers": transformer.stack_defs(_dec_defs(cfg),
+                                             cfg.num_layers),
+            **common.embed_defs(cfg)}
+
+
+class EncDec(nn.Module):
+    """Parameters of the encoder-decoder on `device` (default: the card;
+    raises without one unless `device="cpu"`), uninitialised until
+    `common.init_params` or `convert.params_from_numpy` fills them; for
+    serving, or with `train=True` for training."""
+
+    STACKS = ("encoder", "layers")
+    defs = staticmethod(encdec_defs)
+
+    def __init__(self, cfg: ModelConfig, device=None, train: bool = False):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.encoder = nn.ModuleList(
+            transformer.Params(_enc_defs(cfg), cfg, device, train)
+            for _ in range(cfg.encoder_layers))
+        common.add_params(self, {"ln_enc": (cfg.d_model,)}, cfg, device,
+                          train)
+        self.layers = nn.ModuleList(
+            transformer.Params(_dec_defs(cfg), cfg, device, train)
+            for _ in range(cfg.num_layers))
+        common.add_params(self, common.embed_defs(cfg), cfg, device, train)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def unembed_table(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.unembed
+
+
+def _positions(x, cfg: ModelConfig):
+    return x + layers.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                           x.dtype, x.device)[None]
+
+
+def _encoder_layer(lp, x, cfg: ModelConfig, serving: bool = False):
+    h = layers.layer_norm(x, lp.ln1, cfg.norm_eps)
+    if serving:
+        q = layers.project_q(lp.attn, h, cfg)
+        k, v = layers.project_kv(lp.attn, h, cfg)
+        att = layers.project_out(lp.attn,
+                                 layers.bidirectional_attention(q, k, v))
+    else:
+        att = layers.attention_block(lp.attn, h, cfg, None, causal=False)
+    x = x + att
+    h = layers.layer_norm(x, lp.ln2, cfg.norm_eps)
+    return x + layers.mlp_block(lp.mlp, h, cfg)
+
+
+def encode(model: EncDec, frames: torch.Tensor, cfg: ModelConfig,
+           parallel: ParallelConfig | None = None, serving: bool = False):
+    """frames (B, S_enc, D) -> the encoded frames (B, S_enc, D) in
+    `cfg.dtype`. Training's blocked attention under `parallel.remat`, or
+    with `serving` the `flash_attention` kernel (no autograd)."""
+    parallel = parallel or ParallelConfig()
+    layer = _encoder_layer if serving else transformer.remat(
+        _encoder_layer, parallel.remat)
+    x = _positions(frames.to(common.act_dtype(cfg)), cfg)
+    for lp in model.encoder:
+        x = layer(lp, x, cfg, serving)
+    return layers.layer_norm(x, model.ln_enc, cfg.norm_eps)
+
+
+def _decoder_layer(lp, x, enc_out, cfg: ModelConfig):
+    h = layers.layer_norm(x, lp.ln1, cfg.norm_eps)
+    x = x + layers.attention_block(lp.attn, h, cfg, None, causal=True)
+    h = layers.layer_norm(x, lp.lnx, cfg.norm_eps)
+    x = x + layers.attention_block(lp.xattn, h, cfg, None, causal=False,
+                                   kv_x=enc_out)
+    h = layers.layer_norm(x, lp.ln2, cfg.norm_eps)
+    return x + layers.mlp_block(lp.mlp, h, cfg)
+
+
+def decode_train(model: EncDec, tokens: torch.Tensor, enc_out, cfg,
+                 parallel: ParallelConfig | None = None):
+    """The teacher-forced decoder: tokens (B, S) -> logits (B, S, V_pad)
+    f32."""
+    parallel = parallel or ParallelConfig()
+    layer = transformer.remat(_decoder_layer, parallel.remat)
+    x = _positions(common.embed_tokens(model.embed, tokens, cfg), cfg)
+    for lp in model.layers:
+        x = layer(lp, x, enc_out, cfg)
+    x = layers.layer_norm(x, model.ln_f, cfg.norm_eps)
+    return common.lm_head(model.unembed_table(), x, cfg)
+
+
+def forward(model: EncDec, batch: dict, cfg: ModelConfig,
+            parallel: ParallelConfig | None = None):
+    """batch {frames (B, S_enc, D), tokens (B, S)} -> (logits, aux 0),
+    differentiable."""
+    enc_out = encode(model, batch["frames"], cfg, parallel)
+    logits = decode_train(model, batch["tokens"], enc_out, cfg, parallel)
+    return logits, torch.zeros((), dtype=torch.float32,
+                               device=logits.device)
+
+
+def cache_defs(cfg: ModelConfig, batch: int, max_len: int,
+               enc_frames: int = ENC_FRAMES) -> dict:
+    """Cache shapes and dtypes: k and v (L, B, max_len, KH, hd), xk and xv
+    (L, B, enc_frames, KH, hd), length (B,)."""
+    kh, hd, dt = cfg.num_kv_heads, cfg.resolved_head_dim, \
+        common.act_dtype(cfg)
+    kv = ((cfg.num_layers, batch, max_len, kh, hd), dt)
+    xkv = ((cfg.num_layers, batch, enc_frames, kh, hd), dt)
+    return {"k": kv, "v": kv, "xk": xkv, "xv": xkv,
+            "length": ((batch,), torch.int32)}
+
+
+@torch.inference_mode()
+def prefill(model: EncDec, batch: dict, cfg: ModelConfig):
+    """batch {frames (B, S_enc, D), tokens (B, S)} -> (last-token logits
+    (B, 1, V_pad) f32, cache)."""
+    enc_out = encode(model, batch["frames"], cfg, serving=True)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = _positions(common.embed_tokens(model.embed, tokens, cfg), cfg)
+    cache = transformer.new_cache(cache_defs(
+        cfg, b, s + transformer.PREFILL_EXTRA, enc_out.shape[1]), x.device)
+    cache["length"].fill_(s)
+    for i, lp in enumerate(model.layers):
+        h = layers.layer_norm(x, lp.ln1, cfg.norm_eps)
+        q = layers.project_q(lp.attn, h, cfg)
+        k, v = layers.project_kv(lp.attn, h, cfg)
+        x = x + layers.project_out(lp.attn,
+                                   layers.causal_self_attention(q, k, v))
+        h = layers.layer_norm(x, lp.lnx, cfg.norm_eps)
+        xk, xv = layers.project_kv(lp.xattn, enc_out, cfg)
+        qx = layers.project_q(lp.xattn, h, cfg)
+        x = x + layers.project_out(
+            lp.xattn, layers.bidirectional_attention(qx, xk, xv))
+        h = layers.layer_norm(x, lp.ln2, cfg.norm_eps)
+        x = x + layers.mlp_block(lp.mlp, h, cfg)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+        cache["xk"][i] = xk
+        cache["xv"][i] = xv
+    x = layers.layer_norm(x[:, -1:], model.ln_f, cfg.norm_eps)
+    return common.lm_head(model.unembed_table(), x, cfg), cache
+
+
+@torch.inference_mode()
+def decode_step(model: EncDec, cache: dict, tokens: torch.Tensor,
+                cfg: ModelConfig):
+    """One decoder token, tokens (B, 1) int; the cache as `prefill`
+    returns it, its self-K/V slot and `length` updated IN PLACE. Returns
+    (logits (B, 1, V_pad) f32, cache)."""
+    b = tokens.shape[0]
+    slots = cache["k"].shape[2]
+    pos = cache["length"]
+    x = common.embed_tokens(model.embed, tokens, cfg)
+    postab = layers.sinusoidal_positions(slots, cfg.d_model, x.dtype,
+                                         x.device)
+    x = x + postab[torch.clamp(pos, max=slots - 1).long()][:, None, :]
+    rows = torch.arange(b, device=x.device)
+    slot = torch.clamp(pos, max=slots - 1).long()
+    frames = torch.full((b,), cache["xk"].shape[2], dtype=torch.int32,
+                        device=x.device)
+    for i, lp in enumerate(model.layers):
+        h = layers.layer_norm(x, lp.ln1, cfg.norm_eps)
+        q = layers.project_q(lp.attn, h, cfg)
+        k_new, v_new = layers.project_kv(lp.attn, h, cfg)
+        cache["k"][i, rows, slot] = k_new[:, 0]
+        cache["v"][i, rows, slot] = v_new[:, 0]
+        att = layers.decode_attention(q, cache["k"][i], cache["v"][i],
+                                      pos + 1)
+        x = x + layers.project_out(lp.attn, att)
+        h = layers.layer_norm(x, lp.lnx, cfg.norm_eps)
+        qx = layers.project_q(lp.xattn, h, cfg)
+        attx = layers.decode_attention(qx, cache["xk"][i], cache["xv"][i],
+                                       frames)
+        x = x + layers.project_out(lp.xattn, attx)
+        h = layers.layer_norm(x, lp.ln2, cfg.norm_eps)
+        x = x + layers.mlp_block(lp.mlp, h, cfg)
+    x = layers.layer_norm(x, model.ln_f, cfg.norm_eps)
+    logits = common.lm_head(model.unembed_table(), x, cfg)
+    cache["length"] += 1
+    return logits, cache

@@ -1,8 +1,10 @@
-"""Model layers of the port (`repro.models.layers`' decoder subset).
+"""Model layers of the port (counterpart of `repro.models.layers`).
 
-Norms, RoPE, the attention projections, the MLPs, the blocked causal
-attention of training (full or sliding-window), prefill's causal
-self-attention and decode's attention over the cache, as plain functions
+Norms (RMS and whisper's LayerNorm without a bias), RoPE and sinusoidal
+positions, the attention projections, the MLPs, the blocked attention of
+training (causal, full or sliding-window, and non-causal), prefill's
+causal and non-causal attention and decode's attention over the cache,
+as plain functions
 over tensors; `p` is the `nn.Module` that holds a block's parameters
 under the reference's names and layouts (`wq` (d, H, hd), `wo`
 (H, hd, d), `wi_gate`/`wi_up`/`wo` or `wi`/`wo`).
@@ -19,14 +21,16 @@ f32 and rounds once. Training's attention is `attention_block` over
 `blocked_causal_attention`, differentiated by autograd as the reference
 differentiates its jnp blocks (the Pallas kernel has no backward).
 Prefill's attention is `kernels.ops.flash_attention` (the hand-written
-kernel on the card, its plain version on the CPU) without a window; with
-a sliding window it is the reference's own blocked schedule, since the
-Pallas kernel has no window either.
+kernel on the card, its plain version on the CPU) without a window,
+causal or not; with a sliding window it is the reference's own blocked
+schedule, since the Pallas kernel has no window either.
 """
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -45,6 +49,16 @@ def rms_norm(x, scale, eps: float):
     x32 = x.to(torch.float32)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def layer_norm(x, scale, eps: float):
+    """LayerNorm without a bias (whisper): mean and population variance
+    in f32, scaled, cast back to x's dtype."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
@@ -74,6 +88,23 @@ def apply_rope(x, sin, cos):
     out1 = x1 * cos - x2 * sin
     out2 = x2 * cos + x1 * sin
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def sinusoidal_positions(length: int, d_model: int, dtype=torch.float32,
+                         device=None):
+    """(length, d_model) absolute positions, sin then cos, computed in
+    float64 with numpy as the reference computes them, then rounded to
+    f32 and to `dtype` (the reference's `jnp.asarray(out, dtype)` with
+    64-bit floats off takes the same two steps). Kept for the next call
+    with the same arguments (decode asks every step): do not write to
+    it."""
+    pos = np.arange(length)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d_model)
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32)).to(device=device,
+                                                       dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -301,23 +332,60 @@ def blocked_causal_attention(q, k, v, *, window: int = 0,
     return out.transpose(1, 2).to(q.dtype)
 
 
-def attention_block(p, x, cfg: ModelConfig, tables, *,
-                    attn_mode: str = "auto"):
-    """Causal self-attention block of training: projections, RoPE, the
-    blocked attention and the output projection. `tables` are RoPE's
-    (sin, cos) for the sequence's positions (`rope_tables`; None without
-    RoPE). `attn_mode="cp"` (context parallel) needs a mesh: ROADMAP A12
+def _bidirectional_blocked(q, k, v, q_block: int = 1024,
+                           kv_block: int = 1024):
+    """Non-causal blocked attention (the encoder, cross-attention) of
+    training, differentiable: q (B, Sq, H, hd), k and v (B, Skv, KH, hd)
+    -> (B, Sq, H, hd) in q's dtype. The reference's blocks: q blocks of
+    `q_block` (one block when it does not divide Sq), kv blocks of
+    min(kv_block, Skv) (one block when that does not divide Skv)."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    k = _repeat_kv(k, h // kh)
+    v = _repeat_kv(v, h // kh)
+    scale = 1.0 / math.sqrt(hd)
+    if sq % q_block:
+        q_block = sq
+    skv = k.shape[1]
+    kb = min(kv_block, skv)
+    if skv % kb:
+        kb = skv
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ks, vs = kt.split(kb, dim=2), vt.split(kb, dim=2)
+    outs = []
+    for qi in qt.split(q_block, dim=2):
+        m, l, acc = _init_carry(qt, q_block)
+        for kj, vj in zip(ks, vs, strict=True):
+            m, l, acc = _attn_block(qi, kj, vj, m, l, acc, None, scale)
+        outs.append(_finalize(acc, l))
+    return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)
+
+
+def attention_block(p, x, cfg: ModelConfig, tables, *, causal: bool = True,
+                    kv_x=None, attn_mode: str = "auto"):
+    """Attention block of training: projections, RoPE, the blocked
+    attention and the output projection. `tables` are RoPE's (sin, cos)
+    for the sequence's positions (`rope_tables`; None without RoPE).
+    Causal self-attention takes `blocked_causal_attention`; with
+    `causal=False`, or cross-attention over `kv_x` (keys and values
+    projected from it, without RoPE), `_bidirectional_blocked`.
+    `attn_mode="cp"` (context parallel) needs a mesh: ROADMAP A12
     (Distribution)."""
     if attn_mode == "cp":
         raise NotImplementedError(
             "attn_mode='cp' (context-parallel attention) needs a mesh of "
             "cards: ROADMAP A12 (Distribution)")
     q = project_q(p, x, cfg)
-    k, v = project_kv(p, x, cfg)
+    k, v = project_kv(p, x if kv_x is None else kv_x, cfg)
     if tables is not None:
         sin, cos = tables
-        q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
-    out = blocked_causal_attention(q, k, v, window=cfg.sliding_window)
+        q = apply_rope(q, sin, cos)
+        if kv_x is None:
+            k = apply_rope(k, sin, cos)
+    if kv_x is not None or not causal:
+        out = _bidirectional_blocked(q, k, v)
+    else:
+        out = blocked_causal_attention(q, k, v, window=cfg.sliding_window)
     return project_out(p, out)
 
 
@@ -331,6 +399,16 @@ def causal_self_attention(q, k, v, *, window: int = 0):
     if window:
         return blocked_causal_attention(q, k, v, window=window)
     return ops.flash_attention(q, k, v, causal=True)
+
+
+def bidirectional_attention(q, k, v):
+    """Prefill's non-causal attention (whisper's encoder and its
+    cross-attention over the encoded frames): q (B, Sq, H, hd), k and v
+    (B, Skv, KH, hd), Sq and Skv free -> (B, Sq, H, hd). The reference
+    computes it with `layers._bidirectional_blocked`; the port with one
+    launch of the `flash_attention` kernel, causal=False (its plain
+    version on the CPU)."""
+    return ops.flash_attention(q, k, v, causal=False)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):

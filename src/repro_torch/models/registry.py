@@ -1,9 +1,11 @@
 """Architecture registry of the port: arch id -> params, forward, prefill,
-decode (counterpart of `repro.models.registry`, for the ported families).
+decode (counterpart of `repro.models.registry`).
 
-The port trains and serves the `dense`, `vlm` and `moe` families through
-`models.transformer`, as the reference does; `configs.get_config` raises
-for the others.
+Every family of the reference: `dense`, `vlm` and `moe` through
+`models.transformer`, `hybrid` (zamba2) through `models.mamba`, `ssm`
+(xlstm) through `models.xlstm` and `encdec` (whisper) through
+`models.encdec`. A batch is a dict: `tokens` (B, S), and for `encdec`
+`frames` (B, S_enc, D) too.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from collections.abc import Callable
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, mamba, transformer, xlstm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,17 +30,27 @@ class ArchSpec:
     #                               cache)
 
 
-def _lm_forward(model, batch, cfg, parallel=None):
-    return transformer.forward(model, batch["tokens"], cfg, parallel)
+def _on_tokens(fn):
+    """A family function of tokens as one of the batch."""
+    def call(model, batch, cfg, *args):
+        return fn(model, batch["tokens"], cfg, *args)
 
-
-def _lm_prefill(model, batch, cfg):
-    return transformer.prefill(model, batch["tokens"], cfg)
+    return call
 
 
 _FAMILY = {
-    "dense": dict(model=transformer.Transformer, forward=_lm_forward,
-                  prefill=_lm_prefill, decode_step=transformer.decode_step),
+    "dense": dict(model=transformer.Transformer,
+                  forward=_on_tokens(transformer.forward),
+                  prefill=_on_tokens(transformer.prefill),
+                  decode_step=transformer.decode_step),
+    "hybrid": dict(model=mamba.Zamba, forward=_on_tokens(mamba.forward),
+                   prefill=_on_tokens(mamba.prefill),
+                   decode_step=mamba.decode_step),
+    "ssm": dict(model=xlstm.XLSTM, forward=_on_tokens(xlstm.forward),
+                prefill=_on_tokens(xlstm.prefill),
+                decode_step=xlstm.decode_step),
+    "encdec": dict(model=encdec.EncDec, forward=encdec.forward,
+                   prefill=encdec.prefill, decode_step=encdec.decode_step),
 }
 _FAMILY["moe"] = _FAMILY["dense"]
 _FAMILY["vlm"] = _FAMILY["dense"]
@@ -49,9 +61,16 @@ def get_spec(arch_id: str) -> ArchSpec:
     return ArchSpec(arch_id=arch_id, cfg=cfg, **_FAMILY[cfg.family])
 
 
+def model_class(cfg: ModelConfig):
+    """The `nn.Module` class that holds `cfg`'s family's parameters."""
+    return _FAMILY[cfg.family]["model"]
+
+
 def smoke_config(arch_id: str) -> ModelConfig:
     """Same-family reduced config: tiny widths, few layers and experts,
-    a window of 8, f32, as the reference's `registry.smoke_config`."""
+    a window of 8, f32, as the reference's `registry.smoke_config`
+    (zamba2: 4 layers, the shared block every 2, an SSM state of 16;
+    xlstm: an sLSTM every 2 blocks; whisper: 2 encoder layers)."""
     cfg = get_config(arch_id)
     r = dict(
         num_layers=2,
@@ -69,4 +88,10 @@ def smoke_config(arch_id: str) -> ModelConfig:
         r.update(num_experts=4, experts_per_token=2)
     if cfg.sliding_window:
         r.update(sliding_window=8)
+    if cfg.family == "hybrid":
+        r.update(num_layers=4, attn_every=2, ssm_state=16)
+    if cfg.family == "ssm":
+        r.update(num_layers=2, slstm_every=2)
+    if cfg.encoder_layers:
+        r.update(encoder_layers=2)
     return dataclasses.replace(cfg, **r)

@@ -2,8 +2,8 @@
 the dense family, chameleon (vlm) with qk-norm, and the MoE family
 (`models.moe` in place of the MLP; mixtral with a sliding window).
 
-`Transformer` holds the parameters as `nn.Module`s, one `DecoderLayer`
-per layer, under the reference's names and layouts (`attn.wq`,
+`Transformer` holds the parameters as `nn.Module`s, one `Params` of
+`_layer_defs` per layer, under the reference's names and layouts (`attn.wq`,
 `mlp.wi_gate`, `ln1`, ..., `embed`, `ln_f`, `unembed`); the reference
 stacks the layers on a leading axis for `lax.scan`, the port loops over
 them (`convert` carries a stacked numpy tree either way). Built with
@@ -55,22 +55,26 @@ def _mlp_defs(cfg: ModelConfig) -> dict:
     return moe.moe_defs(cfg) if cfg.num_experts else layers.mlp_defs(cfg)
 
 
-class _Params(nn.Module):
-    def __init__(self, defs: dict, cfg: ModelConfig, device, train: bool):
-        super().__init__()
-        common.add_params(self, defs, cfg, device, train)
-
-
-class DecoderLayer(nn.Module):
+def _layer_defs(cfg: ModelConfig) -> dict:
     """Pre-norm block: attention and MLP (or MoE), each behind an RMS
     norm."""
+    return {"attn": layers.attn_defs(cfg), "mlp": _mlp_defs(cfg),
+            "ln1": (cfg.d_model,), "ln2": (cfg.d_model,)}
 
-    def __init__(self, cfg: ModelConfig, device=None, train: bool = False):
+
+class Params(nn.Module):
+    """A block's parameters from its defs: each nested dict a child
+    `Params` under its name, each shape one parameter
+    (`common.add_params`)."""
+
+    def __init__(self, defs: dict, cfg: ModelConfig, device, train: bool):
         super().__init__()
-        self.attn = _Params(layers.attn_defs(cfg), cfg, device, train)
-        self.mlp = _Params(_mlp_defs(cfg), cfg, device, train)
-        common.add_params(self, {"ln1": (cfg.d_model,),
-                                 "ln2": (cfg.d_model,)}, cfg, device, train)
+        for name, sub in defs.items():
+            if isinstance(sub, dict):
+                setattr(self, name, Params(sub, cfg, device, train))
+        common.add_params(self, {k: v for k, v in defs.items()
+                                 if not isinstance(v, dict)},
+                          cfg, device, train)
 
 
 class Transformer(nn.Module):
@@ -80,11 +84,18 @@ class Transformer(nn.Module):
     serving, or with `train=True` for training (f32 masters that require
     grad)."""
 
+    STACKS = ("layers",)       # stacked on a leading axis in the reference
+
+    @staticmethod
+    def defs(cfg: ModelConfig) -> dict:
+        return transformer_defs(cfg)
+
     def __init__(self, cfg: ModelConfig, device=None, train: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device, train)
+        self.layers = nn.ModuleList(Params(_layer_defs(cfg), cfg, device,
+                                           train)
                                     for _ in range(cfg.num_layers))
         common.add_params(self, common.embed_defs(cfg), cfg, device, train)
 
@@ -99,15 +110,21 @@ class Transformer(nn.Module):
 def transformer_defs(cfg: ModelConfig) -> dict:
     """Parameter shapes in the reference's tree, layers stacked on a
     leading axis (the layout `convert` carries)."""
-    L = cfg.num_layers
-    layer = {"attn": layers.attn_defs(cfg), "mlp": _mlp_defs(cfg),
-             "ln1": (cfg.d_model,), "ln2": (cfg.d_model,)}
+    return {"layers": stack_defs(_layer_defs(cfg), cfg.num_layers),
+            **common.embed_defs(cfg)}
 
-    def stack(d):
-        return {k: stack(v) if isinstance(v, dict) else (L, *v)
-                for k, v in d.items()}
 
-    return {"layers": stack(layer), **common.embed_defs(cfg)}
+def stack_defs(defs: dict, n: int) -> dict:
+    """`defs` with a leading axis of `n` on every shape (the reference's
+    `common.stack_defs`)."""
+    return {k: stack_defs(v, n) if isinstance(v, dict) else (n, *v)
+            for k, v in defs.items()}
+
+
+def new_cache(defs: dict, device) -> dict:
+    """Zero tensors of a cache's (shape, dtype) defs."""
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in defs.items()}
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
@@ -120,7 +137,7 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     return {"k": kv, "v": kv, "length": ((batch,), torch.int32)}
 
 
-def _rope_tables(positions, cfg: ModelConfig):
+def rope_tables(positions, cfg: ModelConfig):
     """(sin, cos) for `positions`, computed once for all layers (the
     reference computes the same tables in every layer), or None."""
     if not cfg.rope_theta:
@@ -129,7 +146,7 @@ def _rope_tables(positions, cfg: ModelConfig):
                               cfg.rope_theta)
 
 
-def _rope(q, k, tables):
+def rope(q, k, tables):
     if tables is None:
         return q, k
     sin, cos = tables
@@ -141,7 +158,7 @@ def decoder_layer(lp, x, cfg: ModelConfig, tables,
                   moe_group: int = moe.GROUP_SIZE):
     """x (B, S, D) -> ((B, S, D), aux): the pre-norm residual block of
     training. `tables` are RoPE's (sin, cos) for the sequence's positions
-    (`_rope_tables`, None without RoPE); aux, the MoE load-balance loss
+    (`rope_tables`, None without RoPE); aux, the MoE load-balance loss
     over groups of `moe_group` tokens, is 0 for a dense layer."""
     h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
     x = x + layers.attention_block(lp.attn, h, cfg, tables,
@@ -160,18 +177,19 @@ def _save_mm(ctx, op, *args, **kwargs):
     return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat(layer_fn, remat: str):
-    if remat == "none":
+def remat(layer_fn, mode: str):
+    """`layer_fn` under `ParallelConfig.remat`'s `mode`."""
+    if mode == "none":
         return layer_fn
-    if remat == "full":
+    if mode == "full":
         return functools.partial(checkpoint.checkpoint, layer_fn,
                                  use_reentrant=False)
-    if remat == "dots":
+    if mode == "dots":
         return functools.partial(
             checkpoint.checkpoint, layer_fn, use_reentrant=False,
             context_fn=functools.partial(
                 checkpoint.create_selective_checkpoint_contexts, _save_mm))
-    raise ValueError(f"unknown remat {remat!r}: none | full | dots")
+    raise ValueError(f"unknown remat {mode!r}: none | full | dots")
 
 
 def forward(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
@@ -180,9 +198,9 @@ def forward(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     aux 0-d f32), differentiable with respect to the model's parameters,
     each layer under `parallel.remat`."""
     parallel = parallel or ParallelConfig()
-    layer = _remat(decoder_layer, parallel.remat)
+    layer = remat(decoder_layer, parallel.remat)
     x = common.embed_tokens(model.embed, tokens, cfg)
-    tables = _rope_tables(torch.arange(tokens.shape[1], dtype=torch.int32,
+    tables = rope_tables(torch.arange(tokens.shape[1], dtype=torch.int32,
                                        device=x.device), cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
@@ -210,17 +228,16 @@ def prefill(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig):
     w = cfg.sliding_window
     slots = min(s, w) if w else s
     x = common.embed_tokens(model.embed, tokens, cfg)
-    tables = _rope_tables(torch.arange(s, dtype=torch.int32,
+    tables = rope_tables(torch.arange(s, dtype=torch.int32,
                                        device=x.device), cfg)
-    cache = {name: torch.zeros(shape, dtype=dtype, device=x.device)
-             for name, (shape, dtype)
-             in cache_defs(cfg, b, slots if w else s + PREFILL_EXTRA).items()}
+    cache = new_cache(cache_defs(cfg, b, slots if w else s + PREFILL_EXTRA),
+                      x.device)
     cache["length"].fill_(s)
     for i, lp in enumerate(model.layers):
         h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
         q = layers.project_q(lp.attn, h, cfg)
         k, v = layers.project_kv(lp.attn, h, cfg)
-        q, k = _rope(q, k, tables)
+        q, k = rope(q, k, tables)
         att = layers.causal_self_attention(q, k, v,
                                            window=cfg.sliding_window)
         x = x + layers.project_out(lp.attn, att)
@@ -246,13 +263,13 @@ def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
         slot = (pos % slots).long()            # the ring of window slots
     else:
         slot = torch.clamp(pos, max=slots - 1).long()
-    tables = _rope_tables(pos[:, None], cfg)
+    tables = rope_tables(pos[:, None], cfg)
     visible = pos + 1
     for i, lp in enumerate(model.layers):
         h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
         q = layers.project_q(lp.attn, h, cfg)
         k_new, v_new = layers.project_kv(lp.attn, h, cfg)
-        q, k_new = _rope(q, k_new, tables)
+        q, k_new = rope(q, k_new, tables)
         cache["k"][i, rows, slot] = k_new[:, 0]
         cache["v"][i, rows, slot] = v_new[:, 0]
         att = layers.decode_attention(q, cache["k"][i], cache["v"][i],

@@ -1,0 +1,354 @@
+"""xLSTM blocks (counterpart of `repro.models.xlstm`): mLSTM (matrix
+memory, through the chunked linear attention of `ssm_common`) and sLSTM
+(scalar memory, a true recurrence).
+
+Every `slstm_every`-th block is an sLSTM, the rest mLSTM; `d_ff = 0`:
+the capacity lives in the blocks' up and down projections (factor 2 for
+the mLSTM, a 4/3 GELU-gated MLP after the sLSTM). The mLSTM's
+exponential input gate is clamped, and its normaliser keeps magnitudes
+bounded.
+
+`XLSTM` holds the parameters: `blocks`, a `ModuleList` of `MLSTMBlock`s
+and `SLSTMBlock`s whose `kind` is the reference's key (`"kind_mlstm"` or
+`"kind_slstm"`: its tree is a tuple of `{kind: params}` dicts), `embed`,
+`ln_f` (the embeddings are tied). A serving model keeps the mLSTM's
+convolution taps and the sLSTM's gate weights in f32, as the reference
+reads them.
+
+The sLSTM's recurrence is a Python loop over time steps (the reference
+scans it with `lax.scan`; it has no Pallas kernel, so no CUDA kernel
+here): the input's gate products are one product over all steps before
+the loop, the recurrent ones (batched over heads) one a step.
+
+Numerics follow the reference: prefill's mLSTM projections are f32
+products cast to the activation dtype (q, k, v) or kept in f32 (the
+gates), decode's are products in the activation dtype, rounded to it,
+gates included (`mlstm_decode_step`). The prefill state hands decode
+`m = max(m, -1e30)`, so that the cache holds no -inf.
+
+The cache: {"blocks": one dict a block, {"mlstm": {"conv" (B, K - 1,
+d_inner) in the activation dtype, "S" (B, H, dh, dh) f32, "n" (B, H,
+dh) f32}} or {"slstm": {"c", "n", "m", "h"}, each (B, H, dh) f32},
+"length" (B,) int32}. Decode replaces each block's entries and returns
+the same dict.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import common, layers, ssm_common, transformer
+from repro_torch.models.mamba import CONV_K, conv1d, conv_tail
+
+EXP_CLAMP = 10.0
+
+
+def _mdims(cfg: ModelConfig):
+    di = 2 * cfg.d_model
+    return di, cfg.num_heads, di // cfg.num_heads
+
+
+def mlstm_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    di, h, _ = _mdims(cfg)
+    return {"norm": (d,), "wu": (d, di), "wz": (d, di), "conv": (CONV_K, di),
+            "wq": (di, di), "wk": (di, di), "wv": (di, di), "wi": (di, h),
+            "wf": (di, h), "f_bias": (h,), "out_norm": (di,), "wo": (di, d)}
+
+
+def slstm_defs(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    dh, fup = d // h, (4 * d) // 3
+    return {"norm": (d,), "w_gates": (d, 4, h, dh),
+            "r_gates": (h, dh, 4, dh), "b_gates": (4, h, dh),
+            "out_norm": (d,), "w_up1": (d, fup), "w_up2": (d, fup),
+            "w_down": (fup, d)}
+
+
+def _is_slstm(cfg: ModelConfig, i: int) -> bool:
+    return bool(cfg.slstm_every) and i % cfg.slstm_every \
+        == cfg.slstm_every - 1
+
+
+def xlstm_defs(cfg: ModelConfig) -> dict:
+    """Parameter shapes in the reference's tree: `blocks` a tuple of
+    `{"kind_slstm": ...}` or `{"kind_mlstm": ...}` dicts."""
+    blocks = tuple({"kind_slstm": slstm_defs(cfg)} if _is_slstm(cfg, i)
+                   else {"kind_mlstm": mlstm_defs(cfg)}
+                   for i in range(cfg.num_layers))
+    return {"blocks": blocks, **common.embed_defs(cfg)}
+
+
+class MLSTMBlock(nn.Module):
+    kind = "kind_mlstm"
+
+    def __init__(self, cfg: ModelConfig, device=None, train: bool = False):
+        super().__init__()
+        common.add_params(self, mlstm_defs(cfg), cfg, device, train,
+                          keep_f32=("conv",))
+
+
+class SLSTMBlock(nn.Module):
+    kind = "kind_slstm"
+
+    def __init__(self, cfg: ModelConfig, device=None, train: bool = False):
+        super().__init__()
+        common.add_params(self, slstm_defs(cfg), cfg, device, train,
+                          keep_f32=("w_gates", "r_gates", "b_gates"))
+
+
+class XLSTM(nn.Module):
+    """Parameters of an xLSTM on `device` (default: the card; raises
+    without one unless `device="cpu"`), uninitialised until
+    `common.init_params` or `convert.params_from_numpy` fills them; for
+    serving, or with `train=True` for training."""
+
+    STACKS = ()
+    defs = staticmethod(xlstm_defs)
+
+    def __init__(self, cfg: ModelConfig, device=None, train: bool = False):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.blocks = nn.ModuleList(
+            (SLSTMBlock if _is_slstm(cfg, i) else MLSTMBlock)(cfg, device,
+                                                              train)
+            for i in range(cfg.num_layers))
+        common.add_params(self, common.embed_defs(cfg), cfg, device, train)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def unembed_table(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.unembed
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def _up(p, x, cfg: ModelConfig):
+    """The block's norm and its two up projections, in x's dtype."""
+    hn = layers.rms_norm(x, p.norm, cfg.norm_eps)
+    return hn @ p.wu.to(x.dtype), hn @ p.wz.to(x.dtype)
+
+
+def _mlstm_out(p, y, z, x, cfg: ModelConfig):
+    """x + (rms_norm(y) * silu(z)) @ wo."""
+    dt = x.dtype
+    y = layers.rms_norm(y, p.out_norm, cfg.norm_eps)
+    y = y * F.silu(z.to(torch.float32)).to(dt)
+    return x + y @ p.wo.to(dt)
+
+
+def mlstm_block(p, x, cfg: ModelConfig, return_state: bool = False):
+    """x (B, S, D) -> (B, S, D); with `return_state` also (conv tail,
+    S (B, H, dh, dh), n (B, H, dh)) for the prefill -> decode handoff."""
+    di, h, dh = _mdims(cfg)
+    b, s, _ = x.shape
+    dt = x.dtype
+    u, z = _up(p, x, cfg)
+    cu = F.silu(conv1d(u, p.conv).to(torch.float32)).to(dt)
+    shp = (b, s, h, dh)
+    q = (cu @ p.wq.to(dt)).reshape(shp)
+    k = (cu @ p.wk.to(dt)).reshape(shp)
+    v = (u @ p.wv.to(dt)).reshape(shp)
+    i_pre = common.dot_f32(cu, p.wi.to(dt))
+    f_pre = common.dot_f32(cu, p.wf.to(dt)) + p.f_bias.to(torch.float32)
+    igate = torch.exp(torch.clamp(i_pre, max=EXP_CLAMP))
+    k = k * (igate[..., None] / math.sqrt(dh)).to(k.dtype)
+    res = ssm_common.chunked_linear_attention(
+        q, k, v, F.logsigmoid(f_pre), chunk=min(128, s), normalize=True,
+        return_state=return_state)
+    y, state = res if return_state else (res, None)
+    out = _mlstm_out(p, y.reshape(b, s, di).to(dt), z, x, cfg)
+    if return_state:
+        return out, (conv_tail(u), state[0], state[1])
+    return out
+
+
+def mlstm_decode_step(p, x, cfg: ModelConfig, conv_buf, S, n):
+    """x (B, 1, D); conv_buf (B, K - 1, d_inner); S (B, H, dh, dh); n (B,
+    H, dh). Returns (x_out, conv_buf, S, n). The projections, the gates'
+    included, are products in x's dtype, as the reference's einsums
+    without `preferred_element_type`."""
+    di, h, dh = _mdims(cfg)
+    b = x.shape[0]
+    dt = x.dtype
+    u, z = _up(p, x, cfg)
+    seqbuf = torch.cat([conv_buf, u], dim=1)
+    cu = F.silu((seqbuf.to(torch.float32)
+                 * p.conv.to(torch.float32)).sum(1)).to(dt)   # (B, di)
+    shp = (b, h, dh)
+    q = (cu @ p.wq.to(dt)).reshape(shp)
+    k = (cu @ p.wk.to(dt)).reshape(shp)
+    v = (u[:, 0] @ p.wv.to(dt)).reshape(shp)
+    i_pre = cu @ p.wi.to(dt)
+    f_pre = (cu @ p.wf.to(dt)) + p.f_bias.to(torch.float32)
+    igate = torch.exp(torch.clamp(i_pre.to(torch.float32), max=EXP_CLAMP))
+    k = k * (igate[..., None] / math.sqrt(dh)).to(k.dtype)
+    y, S, n = ssm_common.linear_attention_step(
+        S, q, k, v, F.logsigmoid(f_pre.to(torch.float32)), norm_state=n,
+        normalize=True)
+    out = _mlstm_out(p, y.reshape(b, 1, di).to(dt), z, x, cfg)
+    return out, seqbuf[:, 1:], S, n
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def _slstm_cell(gates, state):
+    """gates (B, H, 4, dh) pre-activations [z, i, f, o]; state (c, n, m,
+    h) -> the new state."""
+    c, n, m, _ = state
+    zp, ip, fp, op = gates.unbind(2)
+    z = torch.tanh(zp)
+    o = torch.sigmoid(op)
+    fpm = fp + m          # the reference's fp + m, once for both uses
+    m_new = torch.maximum(fpm, ip)
+    i = torch.exp(ip - m_new)
+    f = torch.exp(fpm - m_new)
+    c_new = f * c + i * z
+    n_new = f * n + i
+    h_new = o * (c_new / torch.clamp(n_new, min=1e-6))
+    return c_new, n_new, m_new, h_new
+
+
+def _input_gates(p, hn):
+    """hn (B, S, D) -> its gate products (S, B, H, 4, dh) f32, all steps
+    in one product: the reference's einsum("bd,dghe->bhge") a step."""
+    w = p.w_gates.to(torch.float32)                       # (D, 4, H, dh)
+    d, _, h, dh = w.shape
+    wx = hn.to(torch.float32).transpose(0, 1) @ w.reshape(d, -1)
+    return wx.reshape(*wx.shape[:2], 4, h, dh).transpose(2, 3)
+
+
+def _recurrent_gates(p, wx_t, h_prev):
+    """wx_t (B, H, 4, dh) + h_prev (B, H, dh) @ r_gates (H, dh, 4, dh),
+    batched over heads, + b_gates (4, H, dh)."""
+    r = p.r_gates.to(torch.float32)
+    h, dh = r.shape[0], r.shape[1]
+    wr = torch.bmm(h_prev.transpose(0, 1), r.reshape(h, dh, 4 * dh))
+    wr = wr.reshape(h, -1, 4, dh).transpose(0, 1)
+    return wx_t + wr + p.b_gates.to(torch.float32).transpose(0, 1)[None]
+
+
+def _slstm_mlp(p, hs, x, cfg: ModelConfig):
+    """x + the GELU-gated MLP of rms_norm(hs) (hs (B, S, D) f32)."""
+    dt = x.dtype
+    y = layers.rms_norm(hs.to(dt), p.out_norm, cfg.norm_eps)
+    u1 = common.dot_f32(y, p.w_up1.to(dt))
+    u2 = common.dot_f32(y, p.w_up2.to(dt))
+    g = (F.gelu(u1, approximate="tanh") * u2).to(dt)
+    return x + g @ p.w_down.to(dt)
+
+
+def slstm_block(p, x, cfg: ModelConfig, return_state: bool = False):
+    """x (B, S, D) -> (B, S, D), the recurrence a Python loop over the S
+    steps; with `return_state` also the final (c, n, m, h)."""
+    b, s, d = x.shape
+    h = cfg.num_heads
+    dh = d // h
+    hn = layers.rms_norm(x, p.norm, cfg.norm_eps)
+    z0 = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
+    state = (z0, z0, torch.full_like(z0, -math.inf), z0)
+    hs = []
+    # the steps' input gates by one unbind (its backward stacks their
+    # gradients once; an index a step would add a zero-filled gradient of
+    # all the steps a step)
+    for wx_t in _input_gates(p, hn).unbind(0):
+        state = _slstm_cell(_recurrent_gates(p, wx_t, state[3]), state)
+        hs.append(state[3])
+    out = _slstm_mlp(p, torch.stack(hs, dim=1).reshape(b, s, d), x, cfg)
+    if return_state:
+        return out, state
+    return out
+
+
+def slstm_decode_step(p, x, cfg: ModelConfig, state):
+    """x (B, 1, D); state (c, n, m, h). Returns (x_out, the new state)."""
+    b, _, d = x.shape
+    hn = layers.rms_norm(x, p.norm, cfg.norm_eps)
+    state = _slstm_cell(_recurrent_gates(p, _input_gates(p, hn)[0],
+                                         state[3]), state)
+    return _slstm_mlp(p, state[3].reshape(b, 1, d), x, cfg), state
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+
+def _block(bp, x, cfg: ModelConfig):
+    if bp.kind == SLSTMBlock.kind:
+        return slstm_block(bp, x, cfg)
+    return mlstm_block(bp, x, cfg)
+
+
+def forward(model: XLSTM, tokens: torch.Tensor, cfg: ModelConfig,
+            parallel: ParallelConfig | None = None):
+    """Training's forward: tokens (B, S) int -> (logits (B, S, V_pad) f32,
+    aux 0), differentiable, each block under `parallel.remat`."""
+    parallel = parallel or ParallelConfig()
+    block = transformer.remat(_block, parallel.remat)
+    x = common.embed_tokens(model.embed, tokens, cfg)
+    for bp in model.blocks:
+        x = block(bp, x, cfg)
+    x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
+    return common.lm_head(model.unembed_table(), x, cfg), \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+@torch.inference_mode()
+def prefill(model: XLSTM, tokens: torch.Tensor, cfg: ModelConfig):
+    """tokens (B, S) int -> (last-token logits (B, 1, V_pad) f32, cache)."""
+    b, s = tokens.shape
+    x = common.embed_tokens(model.embed, tokens, cfg)
+    blocks = []
+    for bp in model.blocks:
+        if bp.kind == SLSTMBlock.kind:
+            x, (c, n, m, h) = slstm_block(bp, x, cfg, return_state=True)
+            # a finite stabiliser, so that the cache holds no -inf
+            blocks.append({"slstm": {"c": c, "n": n,
+                                     "m": torch.clamp(m, min=-1e30),
+                                     "h": h}})
+        else:
+            x, (conv, S, n) = mlstm_block(bp, x, cfg, return_state=True)
+            blocks.append({"mlstm": {"conv": conv, "S": S, "n": n}})
+    x = layers.rms_norm(x[:, -1:], model.ln_f, cfg.norm_eps)
+    length = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    return common.lm_head(model.unembed_table(), x, cfg), \
+        {"blocks": blocks, "length": length}
+
+
+@torch.inference_mode()
+def decode_step(model: XLSTM, cache: dict, tokens: torch.Tensor,
+                cfg: ModelConfig):
+    """One decode step, tokens (B, 1) int; each block's entries of the
+    cache replaced by its new state, `length` advanced in place. Returns
+    (logits (B, 1, V_pad) f32, cache)."""
+    x = common.embed_tokens(model.embed, tokens, cfg)
+    for bp, bc in zip(model.blocks, cache["blocks"], strict=True):
+        if bp.kind == SLSTMBlock.kind:
+            st = bc["slstm"]
+            x, state = slstm_decode_step(
+                bp, x, cfg, (st["c"], st["n"], st["m"], st["h"]))
+            bc["slstm"] = dict(zip("cnmh", state, strict=True))
+        else:
+            st = bc["mlstm"]
+            x, conv, S, n = mlstm_decode_step(bp, x, cfg, st["conv"],
+                                              st["S"], st["n"])
+            bc["mlstm"] = {"conv": conv, "S": S, "n": n}
+    x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
+    logits = common.lm_head(model.unembed_table(), x, cfg)
+    cache["length"] += 1
+    return logits, cache

@@ -30,6 +30,12 @@ def make_decode_step(spec, cfg: ModelConfig) -> Callable:
     return decode_step
 
 
+def _place(x, device, dtype=None) -> torch.Tensor:
+    """A numpy array or tensor on `device` (in `dtype` if given)."""
+    x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+    return x.to(device=device, dtype=dtype)
+
+
 def _next_token(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
 
@@ -39,19 +45,20 @@ def greedy_decode(spec, cfg: ModelConfig, model, batch: dict, steps: int,
                   device=None) -> torch.Tensor:
     """Prefill + greedy decode loop: (B, steps) int32 tokens on `device`.
 
-    `batch["tokens"]` (B, S), numpy or tensor, is placed on `device`;
-    `model` must already live there. The prefill cache has
-    `transformer.PREFILL_EXTRA` slots of headroom, so at most
-    PREFILL_EXTRA + 1 steps fill no slot twice."""
+    `batch["tokens"]` (B, S), numpy or tensor, is placed on `device`, and
+    so is an encoder-decoder's `batch["frames"]` (B, S_enc, D); `model`
+    must already live there. A KV cache has `transformer.PREFILL_EXTRA`
+    slots of headroom, so at most PREFILL_EXTRA + 1 steps fill no slot
+    twice."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"the model is on {model.device}, the decode on "
                          f"{dev}")
-    tokens = batch["tokens"]
-    tokens = torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(
-        tokens) else tokens).to(device=dev, dtype=torch.int32)
+    placed = {"tokens": _place(batch["tokens"], dev, torch.int32)}
+    if cfg.family == "encdec":
+        placed["frames"] = _place(batch["frames"], dev)
     decode = make_decode_step(spec, cfg)
-    logits, cache = make_prefill_step(spec, cfg)(model, {"tokens": tokens})
+    logits, cache = make_prefill_step(spec, cfg)(model, placed)
     tok = _next_token(logits)
     out = [tok]
     for _ in range(steps - 1):

@@ -624,6 +624,15 @@ _ATTN_CASES = {
     "sq-77-skv-1000": (2, 77, 1000, 8, 2, 128, True),
     "full-sq-77-skv-1000": (2, 77, 1000, 8, 2, 128, False),
     "d64-4096": (1, 4096, 4096, 8, 2, 64, True),
+    # zamba2's head dim of 80 (MHA, 32 heads), computed in the tiles of
+    # D = 128: causal, ragged, Sq < Skv, full and one query row
+    "d80-zamba2-heads": (2, 512, 512, 32, 32, 80, True),
+    "d80-ragged-1000": (1, 1000, 1000, 8, 8, 80, True),
+    "d80-sq-below-skv": (2, 100, 333, 8, 2, 80, True),
+    "d80-full": (1, 200, 200, 8, 8, 80, False),
+    "d80-sq-1": (2, 1, 777, 8, 8, 80, True),
+    # whisper's cross-attention: 416 prompt queries over 1500 frames
+    "d64-whisper-cross": (1, 416, 1500, 12, 12, 64, False),
 }
 
 
@@ -653,10 +662,11 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.gpu
-def test_flash_attention_kernel_bit_reproducible(cuda):
+@pytest.mark.parametrize("kh,d", [(4, 128), (32, 80)])
+def test_flash_attention_kernel_bit_reproducible(cuda, kh, d):
     """No atomics, and an item's arithmetic does not depend on which
     block takes it: two calls on the same inputs give the same bits."""
-    q, k, v = _attn_inputs(cuda, 2, 1000, 1000, 32, 4, 128, seed=7)
+    q, k, v = _attn_inputs(cuda, 2, 1000, 1000, 32, kh, d, seed=7)
     outs = [ops.flash_attention(q, k, v) for _ in range(3)]
     torch.cuda.synchronize()
     assert all(torch.equal(o, outs[0]) for o in outs)
@@ -955,3 +965,73 @@ def test_dense_async_save_holds_the_pre_step_bits_on_the_card(cuda,
             convert.tree_leaves(want), strict=True):
         assert pa == pb
         np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid, SSM and encoder-decoder families on the card
+# ---------------------------------------------------------------------------
+
+# per arch: the smoke config's changes (a head dim the kernel takes where
+# prefill reaches it) and the activation dtype: bf16 where the kernel is
+# on the path (it takes bf16 only), f32 where it is not
+_FAMILY_CASES = {
+    "zamba2-2.7b": (dict(d_model=320, num_heads=4, num_kv_heads=4,
+                         head_dim=0), "bfloat16"),
+    "xlstm-125m": ({}, "float32"),
+    "whisper-small": (dict(d_model=128, num_heads=2, num_kv_heads=2,
+                           head_dim=0), "bfloat16"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(_FAMILY_CASES))
+def test_family_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """Prefill and 3 decode steps of each family at a small width, the
+    same weights and tokens on the card and the CPU: the last logits
+    within 2e-2 of the row's largest |logit| in bf16 (each side rounds at
+    the same places, sums in its own order, and the kernel's
+    probabilities are bf16) and 1e-4 in f32 (TF32 off); flash_attention
+    launched once per attention of the prefill on the card (zamba2: each
+    invocation of the shared block; whisper: 3 a layer)."""
+    import dataclasses
+
+    from repro_torch.models import common, registry
+
+    changes, dtype = _FAMILY_CASES[arch]
+    spec = registry.get_spec(arch)
+    cfg = dataclasses.replace(registry.smoke_config(arch), dtype=dtype,
+                              **changes)
+    cpu = common.init_params(spec.model(cfg, device="cpu"),
+                             torch.Generator().manual_seed(0))
+    card = spec.model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    host = {"tokens": rng.integers(0, cfg.vocab_size, size=(2, 48)).astype(
+        np.int32)}
+    if cfg.family == "encdec":
+        host["frames"] = rng.normal(size=(2, 80, cfg.d_model)).astype(
+            np.float32)
+    want_fa = {"hybrid": cfg.num_layers // max(cfg.attn_every, 1),
+               "encdec": 3 * cfg.num_layers}.get(cfg.family, 0)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = ops.launch_counts()["flash_attention"]
+        lc, cc = spec.prefill(card, {k: torch.from_numpy(v).to(cuda)
+                                     for k, v in host.items()}, cfg)
+        assert ops.launch_counts()["flash_attention"] == before + want_fa
+        lh, ch = spec.prefill(cpu, {k: torch.from_numpy(v)
+                                    for k, v in host.items()}, cfg)
+        for step in range(4):
+            got = lc.float().cpu()[:, -1, :cfg.vocab_size]
+            want = lh.float()[:, -1, :cfg.vocab_size]
+            scale = want.abs().amax(dim=-1, keepdim=True)
+            assert bool(((got - want).abs() <= tol * scale).all()), step
+            tok = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, size=(2, 1)).astype(np.int32))
+            if step < 3:
+                lc, cc = spec.decode_step(card, cc, tok.to(cuda), cfg)
+                lh, ch = spec.decode_step(cpu, ch, tok, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -174,15 +174,23 @@ def test_serving_without_device_needs_a_card():
 
 
 def test_unported_model_features_raise(capsys):
-    from repro_torch.configs import get_config
+    """Every arch of the reference resolves; an unknown id, context-
+    parallel attention (a mesh: ROADMAP A12) and a dense arch under
+    --sparse raise."""
+    from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.launch import serve as launch_serve
-    from repro_torch.models import registry
+    from repro_torch.models import layers, registry
 
-    for arch in ("zamba2-2.7b", "xlstm-125m", "whisper-small"):
-        with pytest.raises(KeyError, match="ROADMAP A12"):
-            get_config(arch)
-        with pytest.raises(KeyError, match="ROADMAP A12"):
-            registry.get_spec(arch)
+    assert len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        spec = registry.get_spec(arch)
+        assert spec.cfg == get_config(arch)
+        assert registry.model_class(spec.cfg) is spec.model
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("not-an-arch")
+    cfg = registry.smoke_config("zamba2-2.7b")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        layers.attention_block(None, None, cfg, None, attn_mode="cp")
     with pytest.raises(SystemExit):
         launch_serve.main(["--sparse", "--arch", "yi-6b"])
     assert "is a dense LM config" in capsys.readouterr().err

@@ -598,11 +598,11 @@ def test_launch_train_ranks_are_hosts_as_in_the_reference(launched):
     (["--sparse", "--hosts", "2", "--host-id", "2"], "not a host of"),
     (["--sparse", "--host-id", "-2"], "not a host of"),
     (["--sparse", "--save-every", "0"], "--save-every must be"),
-    (["--strategy", "a2a"], "ROADMAP A12")])
+    (["--strategy", "a2a"], "--arch is required")])
 def test_launch_train_refuses_what_is_not_ported(argv, names, capsys):
-    """The dense mode needs an --arch of a ported family (the others are
-    ROADMAP A12); host flags that name no host, and a save interval below
-    1, are refused before any group starts."""
+    """The dense mode needs an --arch (every family of the reference is
+    ported); host flags that name no host, and a save interval below 1,
+    are refused before any group starts."""
     from repro_torch.launch import train
 
     with pytest.raises(SystemExit):

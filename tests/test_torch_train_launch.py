@@ -17,6 +17,13 @@ and its fault tolerance, on the CPU, against the JAX package's.
 - The CLI trains and prints its summary; more than one rank is refused,
   and without a card the trainer and the CLI raise unless told the
   CPU.
+- For zamba2, xlstm and whisper at smoke size (the reference's trees
+  with a shared block, a tuple of blocks, an encoder; whisper's frames
+  from the loader): the reference CLI's checkpoint after 2 steps,
+  resumed by the port to step 3, within 1e-5 of the reference's 3
+  uninterrupted steps, and the port's checkpoint of that state read back
+  by the reference leaf for leaf; `launch.serve` (whisper's frames drawn
+  as the reference draws them) and `launch.train --device cpu`.
 """
 import json
 import os
@@ -25,9 +32,12 @@ import jax
 import numpy as np
 import pytest
 
+from repro.ckpt import checkpointer as jckpt
 from repro.launch import train as jtrain
 from repro.runtime import fault_tolerance as jft
 from repro_torch import convert
+from repro_torch.ckpt.checkpointer import Checkpointer
+from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train
 from repro_torch.runtime import fault_tolerance as ft
 
@@ -255,3 +265,54 @@ def test_dense_trainer_needs_a_card_unless_told_cpu():
                            torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.train_loop(_args(train.build_parser, 2))
+
+
+FAMILIES = ["zamba2-2.7b", "xlstm-125m", "whisper-small"]
+
+
+def _family_argv(arch, steps, ckpt=""):
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--seq", "16",
+            "--log-every", "0", "--no-preemption-guard", "--prefetch", "1",
+            "--steps", str(steps)]
+    if ckpt:
+        argv += ["--ckpt", str(ckpt), "--save-every", "2"]
+    return argv
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_checkpoints_cross_packages(arch, tmp_path):
+    whole = jtrain.train_loop(jtrain.build_parser().parse_args(
+        _family_argv(arch, 3)))
+    jtrain.train_loop(jtrain.build_parser().parse_args(
+        _family_argv(arch, 2, tmp_path / "jax")))
+    got = train.train_loop(train.build_parser().parse_args(
+        [*_family_argv(arch, 3, tmp_path / "jax"), "--device", "cpu"]))
+    assert got["last_step"] == 3 and len(got["losses"]) == 1
+    np.testing.assert_allclose(got["losses"], whole["losses"][2:],
+                               rtol=TOL, atol=TOL)
+    _close_params(convert.params_to_numpy(got["state"]["params"]),
+                  jax.tree.map(np.asarray, whole["state"]["params"]))
+    Checkpointer(str(tmp_path / "port")).save(3, got["state"])
+    template = jax.tree.map(lambda a: np.zeros_like(np.asarray(a)),
+                            whole["state"])
+    restored, _ = jckpt.Checkpointer(str(tmp_path / "port")).restore(
+        template, 3)
+    for (gp, g), (wp, w) in zip(
+            convert.tree_leaves(convert.train_state_to_numpy(got["state"])),
+            convert.tree_leaves(jax.tree.map(np.asarray, restored)),
+            strict=True):
+        assert gp == wp
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_launch_family_on_the_cpu(arch, capsys):
+    import torch
+
+    toks = launch_serve.main(["--arch", arch, "--device", "cpu", "--batch",
+                              "2", "--prompt-len", "12", "--decode-steps",
+                              "4"])
+    assert toks.shape == (2, 4) and toks.dtype == torch.int32
+    assert "decoded (2, 4) on cpu" in capsys.readouterr().out
+    out = train.main([*_family_argv(arch, 2), "--device", "cpu"])
+    assert out["last_step"] == 2 and all(np.isfinite(out["losses"]))

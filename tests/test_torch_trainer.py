@@ -21,10 +21,13 @@ The same numpy inputs go through both packages at the smoke size of
   bf16 activations at the same places but sums in its own order, which
   moves the loss by a few bf16 units of the logits' scale, not of the
   loss's (3e-4 of 5.56 measured);
-- 3 adamw steps of every other ported family member (granite-8b,
-  granite-34b, chameleon-34b, llama3-405b, phi3.5-moe, mixtral; the MoE
-  archs also at microbatches 2, their aux loss summed over layers and
-  averaged over microbatches): metrics within 1e-5, each param leaf
+- 3 adamw steps of every other ported arch (granite-8b, granite-34b,
+  chameleon-34b, llama3-405b, phi3.5-moe, mixtral, zamba2 (remat full
+  over a group of layers and the shared block), xlstm, whisper (frames
+  and tokens); the MoE archs also at microbatches 2, their aux loss
+  summed over layers and averaged over microbatches; the SSM scalars
+  A_log, dt_bias, D_skip and f_bias redrawn as the norm scales are):
+  metrics within 1e-5, each param leaf
   within 2^-5 of its largest update (ROADMAP C20); mixtral's bf16
   masters and moments, one step within 2^-8 of the reference's.
 The sliding window's blocked attention is tests/test_torch_swa.py's.
@@ -75,7 +78,13 @@ def _t(x):
 
 
 def _is_norm(path):
-    return path[-1] in ("ln1", "ln2", "q_norm", "k_norm")
+    return path[-1] in ("ln1", "ln2", "q_norm", "k_norm", "lnx", "ln_enc",
+                        "norm", "out_norm")
+
+
+def _keys(path):
+    """A jax key path as its dict keys and tuple indices."""
+    return tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
 
 
 def _tree(arch, cfg, seed=0):
@@ -87,17 +96,27 @@ def _tree(arch, cfg, seed=0):
 
     def leaf(path, x):
         x = np.asarray(x)
-        if _is_norm(tuple(k.key for k in path)):
+        keys = _keys(path)
+        if _is_norm(keys) or keys[-1] == "D_skip":
             x = (1.0 + 0.1 * rng.normal(size=x.shape)).astype(x.dtype)
+        elif keys[-1] in ("A_log", "dt_bias"):
+            x = (0.5 * rng.normal(size=x.shape)).astype(x.dtype)
+        elif keys[-1] == "f_bias":
+            x = (2.0 + 0.5 * rng.normal(size=x.shape)).astype(x.dtype)
         return x
 
     return jax.tree_util.tree_map_with_path(leaf, params)
 
 
 def _tokens(cfg, seed, b=B, s=S):
+    """tokens and labels, and an encoder-decoder's frames (B, S, D)."""
     rng = np.random.default_rng(seed)
-    return {k: rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
-            for k in ("tokens", "labels")}
+    batch = {k: rng.integers(0, cfg.vocab_size, size=(b, s)).astype(
+        np.int32) for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(size=(b, s, cfg.d_model)).astype(
+            np.float32)
+    return batch
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +365,8 @@ def test_bf16_train_step_matches_reference(reference_runs):
 
 
 FAMILY = ["granite-8b", "granite-34b", "chameleon-34b", "llama3-405b",
-          "phi3.5-moe-42b-a6.6b", "mixtral-8x22b"]
+          "phi3.5-moe-42b-a6.6b", "mixtral-8x22b", "zamba2-2.7b",
+          "xlstm-125m", "whisper-small"]
 MOE = ("phi3.5-moe-42b-a6.6b", "mixtral-8x22b")
 
 
