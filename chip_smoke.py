@@ -199,8 +199,9 @@ Phases, in order; any failure exits non-zero:
               steps against prefill(4096), within ATTN_TOL of the row's
               scale, and a control from zeroed SSD states missing by 5x
               that; (c) configuration 14: zamba2 trained as in 13(a) at
-              54 layers, else 12, else 6 (out of memory or a peak above
-              75 GiB cuts it; the cut is logged), model FLOPs with the
+              12 layers, else 6 (out of memory or a peak above 75 GiB
+              cuts it; the cut is logged; 54 layers run out of memory on
+              one card, a 4-card cell now), model FLOPs with the
               chunked scan and the attention (`model_flops`), and one
               f32 sgd step at 6 layers, 1 x 256, card vs CPU; (d)
               configurations 15-16: xlstm-125m served (8 x 4096, 32
@@ -208,7 +209,8 @@ Phases, in order; any failure exits non-zero:
               raised; within XLSTM_HANDOFF_TOL = 3e-4, 2x the sound
               path's reading and above the logits' response to one f32
               rounding of the input), and
-              trained at 16 x 1024 (remat none), the sLSTM loop's share
+              trained at 16 x 1024 cut to 4 blocks (remat none; its
+              sLSTM loop is host-bound), the sLSTM loop's share
               of the step from the same step with the sLSTM blocks made
               the identity, and one f32 sgd step at 2 layers, 1 x 256,
               card vs CPU (not the loss's fall: at random init the
@@ -225,6 +227,24 @@ Phases, in order; any failure exits non-zero:
               prefill and 4 decode steps (zamba2 and whisper in bf16
               within ATTN_TOL of the row's scale, xlstm in f32 with TF32
               off within 1e-4)
+  16. distribution  the dense trainer over a mesh, on an NCCL group of one
+              rank, mesh (data 1, model 1): (1) configuration 9 as in
+              13(a) through make_train_step(..., mesh), losses and final
+              params bit for bit against 13(a)'s one-card run (the
+              gathers NCCL copies, the reduce-scatters the identity),
+              both runs' step ms, tokens/s, model TFLOP/s, peak memory
+              and idle share; (2) context-parallel attention at C = 4
+              chunks of yi-6b's attention (4 x 4096, 32 heads over 4,
+              D = 128, bf16, causal) on one card against
+              blocked_causal_attention, forward and dq/dk/dv, both
+              forwards timed; (3) compress_codes of configuration 9's 39
+              first-step gradient leaves, card vs CPU bit for bit (and
+              with C33's scalar divisor, counted), compress_psum through
+              the group, wire_bytes; (4) launch.train --arch yi-6b
+              --smoke for 3 steps under torchrun --nproc-per-node 1 and
+              as one process, the same params_md5; (5) the per-rank
+              bytes of yi-6b's whole train state at (data 4), (data 8)
+              and (data 2, model 4), arithmetic
 Then one `{"kernels": [...]}` line, and last the device line
 `{"ok": true, "device": {...}}`. Measurements also go to
 results/chip_smoke.json.
@@ -247,6 +267,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_TC_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+
 SMEM_PER_BLOCK = 232448        # H100 shared memory a block can use
 LOG2_F, K, BATCH, STEPS = 27, 64, 4096, 20
 TOPK_FRAC = 0.05
@@ -3119,11 +3140,11 @@ def train_config(num_layers, arch=ARCH, **changes):
                                      **changes)
 
 
-def _train_state(torch, spec, cfg, tc, pc, dev):
+def _train_state(torch, spec, cfg, tc, pc, dev, mesh=None):
     from repro_torch.train import trainer
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    return trainer.init_state(spec, cfg, tc, pc, gen, dev)
+    return trainer.init_state(spec, cfg, tc, pc, gen, dev, mesh=mesh)
 
 
 def _lm_batches(cfg, batch, seq, n, dev):
@@ -3217,29 +3238,33 @@ def model_flops(cfg, n_flops, batch, seq):
 
 def _train_main(torch, dev, arch=ARCH, num_layers=TRAIN_LAYERS,
                 phase="train_dense", batch_rows=TRAIN_BATCH, seq=TRAIN_SEQ,
-                require_learning=True, remat="full"):
+                require_learning=True, remat="full", mesh=None, pc_kw=None,
+                keep=None):
     """(a) configuration 9: 10 adamw steps of yi-6b at 4 x 4096, 4 layers
     (or of `arch` at `num_layers`, batch_rows x seq). The model FLOPs are
     `model_flops`'. Unless not `require_learning`, the first batch's
-    cross-entropy after the 10 steps must be below step 1's."""
+    cross-entropy after the 10 steps must be below step 1's. With a
+    `mesh`, the mesh trainer (`ParallelConfig` fields `pc_kw` added);
+    `keep(state)` sees the state after the run, before it is freed."""
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.kernels import ops
     from repro_torch.models import common
+    from repro_torch.models.parallel import ShardedView
     from repro_torch.train import trainer
 
     spec, cfg = train_config(num_layers, arch)
     tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                      total_steps=TRAIN_STEPS, optimizer="adamw")
-    pc = ParallelConfig(remat=remat)
+    pc = ParallelConfig(remat=remat, **(pc_kw or {}))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    state = _train_state(torch, spec, cfg, tc, pc, dev)
+    state = _train_state(torch, spec, cfg, tc, pc, dev, mesh)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     n_params = sum(p.numel() for p in state["params"].parameters())
     state_bytes = torch.cuda.memory_allocated()
-    step = trainer.make_train_step(spec, cfg, tc, pc)
+    step = trainer.make_train_step(spec, cfg, tc, pc, mesh)
     tokens = batch_rows * seq
     losses, step_ms, metrics = [], [], []
     ops.reset_launch_counts()
@@ -3260,8 +3285,11 @@ def _train_main(torch, dev, arch=ARCH, num_layers=TRAIN_LAYERS,
     require(all(np.isfinite(x) for x in losses), f"losses {losses}")
     # step 1 (lr 0 under warmup) measured the first batch's cross-entropy
     # at the initial params; the trained params must lower it
+    model = state["params"]
+    if mesh is not None:
+        model = ShardedView(model, model.layout)
     with torch.no_grad():
-        logits, _ = spec.forward(state["params"], first, cfg, pc)
+        logits, _ = spec.forward(model, first, cfg, pc)
         after = float(common.cross_entropy(logits, first["labels"]))
     del logits
     log(f"[{phase}] the first batch's cross-entropy {metrics[0]['nll']:.6f} "
@@ -3282,8 +3310,9 @@ def _train_main(torch, dev, arch=ARCH, num_layers=TRAIN_LAYERS,
         f"steps 3-{TRAIN_STEPS} {med:.3f} ms, {tokens / med * 1e3:.1f} "
         f"tokens/s; model FLOPs a step {flops:.4e} "
         f"({', '.join(f'{k} {v:.4e}' for k, v in terms.items())}) = "
-        f"{tflops:.2f} TFLOP/s, {tflops / 989:.4f} of the "
-        f"bf16 dense peak 989 TFLOP/s (NVIDIA H100 SXM data sheet); "
+        f"{tflops:.2f} TFLOP/s, {tflops / (BF16_TC_FLOPS / 1e12):.4f} of "
+        f"the bf16 dense peak {BF16_TC_FLOPS / 1e12:g} TFLOP/s (NVIDIA H100 "
+        f"SXM data sheet); "
         f"max_memory_allocated {peak / 2 ** 30:.3f} GiB ({peak} B)")
     log(f"[{phase}] losses {[round(x, 5) for x in losses]}; aux "
         f"{[round(m['aux'], 5) for m in metrics]}; lr "
@@ -3306,10 +3335,13 @@ def _train_main(torch, dev, arch=ARCH, num_layers=TRAIN_LAYERS,
            "step_ms_median": med, "tokens_per_s": tokens / med * 1e3,
            "model_flops": flops, "model_flops_terms": terms,
            "model_tflops": tflops,
-           "peak_share": tflops / 989, "max_memory_allocated": peak,
+           "peak_share": tflops / (BF16_TC_FLOPS / 1e12),
+           "max_memory_allocated": peak,
            "losses": losses, "metrics": metrics, "launches": counts,
            "profile": prof}
-    del state, batch, first
+    if keep is not None:
+        keep(state)
+    del state, batch, first, model
     torch.cuda.empty_cache()
     return out
 
@@ -3491,10 +3523,11 @@ def _train_restarts(torch, dev):
     return out
 
 
-def phase_train_dense(torch, dev):
-    """The dense trainer: (a) configuration 9, (b) card vs CPU, (c) remat
-    modes and microbatches, (d) fault tolerance."""
-    return {"main": _train_main(torch, dev),
+def phase_train_dense(torch, dev, keep=None):
+    """The dense trainer: (a) configuration 9 (`keep(state)` sees its
+    state after the run), (b) card vs CPU, (c) remat modes and
+    microbatches, (d) fault tolerance."""
+    return {"main": _train_main(torch, dev, keep=keep),
             "card_vs_cpu": _train_vs_cpu(torch, dev),
             "variants": _train_variants(torch, dev),
             "restarts": _train_restarts(torch, dev)}
@@ -3899,7 +3932,14 @@ HANDOFF_PROMPT, HANDOFF_STEPS = 3968, 128       # 3968 + 128 = PROMPT
 # the embedding (2.45e-4: random weights make the mLSTM's normaliser
 # |q . n| small at some positions); the zeroed-state control reads 1.35
 XLSTM_HANDOFF_TOL = 3e-4
-ZAMBA_TRAIN_DEPTHS = (54, 12, 6)               # full, then cut
+# 54 layers run out of memory on one card (38.6 GB of state and a
+# group's recompute, PERF.md configuration 14): full depth is a 4-card
+# cell, so the path starts at 12
+ZAMBA_TRAIN_DEPTHS = (12, 6)
+# xlstm's training is host-bound (the sLSTM recurrence, 6-12 s a step at
+# its 12 blocks): cut to 4 blocks (2 sLSTM), which keeps the path and its
+# sLSTM share within the script's time
+XLSTM_TRAIN_BLOCKS = 4
 
 
 def family_model(torch, dev, arch, generator=None, **changes):
@@ -4201,9 +4241,9 @@ def _handoff(torch, dev, arch, dtype, tol, batch=2, **changes):
 
 
 def _zamba_train(torch, dev):
-    """(c) configuration 14: zamba2 trained at full depth if the peak
-    stays under TRAIN_PEAK_LIMIT, else at 12 layers, then 6; then one f32
-    sgd step at 6 layers, 1 x 256, card vs CPU."""
+    """(c) configuration 14: zamba2 trained at 12 layers if the peak
+    stays under TRAIN_PEAK_LIMIT, else at 6; then one f32 sgd step at 6
+    layers, 1 x 256, card vs CPU."""
     main = None
     for depth in ZAMBA_TRAIN_DEPTHS:
         try:
@@ -4243,7 +4283,7 @@ def _without_slstm_ms(torch, dev, n=3):
     from repro_torch.models import xlstm
     from repro_torch.train import trainer
 
-    spec, cfg = train_config(12, XLSTM)
+    spec, cfg = train_config(XLSTM_TRAIN_BLOCKS, XLSTM)
     tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                      total_steps=TRAIN_STEPS, optimizer="adamw")
     pc = ParallelConfig(remat="none")
@@ -4273,8 +4313,8 @@ def _without_slstm_ms(torch, dev, n=3):
 
 
 def _xlstm_train(torch, dev):
-    """(d) configuration 16: xlstm-125m trained at 16 x 1024, adamw, 10
-    steps, remat none (it fits, and a recompute would replay the sLSTM
+    """(d) configuration 16: xlstm-125m (cut to XLSTM_TRAIN_BLOCKS) trained
+    at 16 x 1024, adamw, 10 steps, remat none (it fits, and a recompute would replay the sLSTM
     loop); the sLSTM loop's share of the step from the same step with
     the sLSTM blocks made the identity; one f32 sgd step at 2 layers,
     1 x 256, card vs CPU. At random init the mLSTM's normaliser
@@ -4282,8 +4322,9 @@ def _xlstm_train(torch, dev):
     thousands, and 10 steps at lr 3e-4 barely move the first batch's
     cross-entropy either way: the card-vs-CPU step, not the loss's fall,
     is what is required of the training path."""
-    main = _train_main(torch, dev, XLSTM, 12, "families", FAM_TRAIN_BATCH,
-                       FAM_TRAIN_SEQ, require_learning=False, remat="none")
+    main = _train_main(torch, dev, XLSTM, XLSTM_TRAIN_BLOCKS, "families",
+                       FAM_TRAIN_BATCH, FAM_TRAIN_SEQ, require_learning=False,
+                       remat="none")
     rest_ms = _without_slstm_ms(torch, dev)
     share = 1 - rest_ms / main["step_ms_median"]
     log(f"[families] xlstm-125m train step with the sLSTM blocks made the "
@@ -4419,6 +4460,296 @@ def phase_families(torch, dev, results):
                                 num_layers=2, encoder_layers=2)}
     return out
 
+DIST_CHUNKS = 4                # CP chunks of yi-6b's attention on one card
+DIST_LAUNCH_STEPS = 3
+# per-rank bytes of yi-6b's whole train state (f32 params, adamw's
+# moments) at full depth, from the reference's rules (arithmetic)
+DIST_STATE_BYTES = {(4, 1): 18_185_502_728, (8, 1): 9_094_348_808,
+                    (2, 4): 9_094_348_808}
+
+
+def _nccl_one_rank(torch, name):
+    """The default group as an NCCL group of one rank (file store)."""
+    import torch.distributed as dist
+
+    store = ROOT / "results" / name
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{store}", rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+
+
+def _same_params(torch, state, want):
+    """Leaves of `state`'s params whose bits differ from `want`'s (CPU)."""
+    with torch.no_grad():
+        return [n for n, p in state["params"].named_parameters()
+                if not torch.equal(p.detach().cpu(), want[n])]
+
+
+def keep_params(holder):
+    """A `_train_main` keep: the state's params, on the CPU, into
+    `holder["params"]`."""
+    def keep(state):
+        holder["params"] = {n: p.detach().cpu()
+                            for n, p in state["params"].named_parameters()}
+    return keep
+
+
+def _dist_runs(torch, dev, mesh, plain):
+    """(1): configuration 9 through the mesh trainer on `mesh` (an NCCL
+    group of one rank) against the one-card trainer's run of phase 13 (a)
+    in this call (`plain`: its result and final params): losses and final
+    params bit for bit; each run's step ms, tokens/s, model TFLOP/s, peak
+    memory and idle share."""
+    diff = []
+    runs = {"plain": plain["run"]}
+    runs["mesh"] = _train_main(
+        torch, dev, phase="distribution mesh", mesh=mesh,
+        keep=lambda state: diff.extend(_same_params(torch, state,
+                                                    plain["params"])))
+    same_loss = runs["mesh"]["losses"] == runs["plain"]["losses"]
+    log(f"[distribution] mesh (data 1, model 1) against no mesh: losses "
+        f"bit-identical {same_loss}; params leaves that differ "
+        f"{len(diff)} of {len(plain['params'])} {diff[:4]}")
+    require(same_loss and not diff,
+            "the world-1 mesh trainer is not the one-card trainer bit for "
+            "bit")
+    runs["mesh"]["params_bit_identical"] = not diff
+    for tag, r in runs.items():
+        log(f"[distribution] {tag}: step ms median {r['step_ms_median']:.3f}"
+            f", {r['tokens_per_s']:.1f} tokens/s, {r['model_tflops']:.2f} "
+            f"model TFLOP/s, peak {r['max_memory_allocated'] / 2 ** 30:.3f} "
+            f"GiB, idle share {r['profile']['idle_share']:.3f}")
+    ratio = runs["mesh"]["step_ms_median"] / runs["plain"]["step_ms_median"]
+    log(f"[distribution] the mesh's median step is {ratio:.4f}x the one "
+        f"card's")
+    return runs
+
+
+def _dist_cp(torch, dev):
+    """(2): context-parallel attention at C = 4 chunks of yi-6b's
+    attention shape on one card against blocked_causal_attention: the
+    output, each element within ATTN_TOL of (1 + |blocked|), and dq, dk,
+    dv of sum(out * g) within ATTN_TOL of their largest |blocked|; the
+    forwards timed (CUDA events)."""
+    from repro_torch.models import layers
+
+    _, cfg = train_config(TRAIN_LAYERS)
+    b, s, h = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads
+    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v, g = draw(b, s, h, hd), draw(b, s, kh, hd), draw(b, s, kh, hd), \
+        draw(b, s, h, hd)
+    n = s // DIST_CHUNKS
+
+    def chunked(q, k, v):
+        return torch.cat([layers.cp_attention_chunk(
+            q[:, c * n:(c + 1) * n], k, v, c, DIST_CHUNKS)
+            for c in range(DIST_CHUNKS)], dim=1)
+
+    def blocked(q, k, v):
+        return layers.blocked_causal_attention(q, k, v)
+
+    res = {}
+    outs, grads = {}, {}
+    for tag, fn in (("cp", chunked), ("blocked", blocked)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        grads[tag] = torch.autograd.grad(out, leaves, g)
+        outs[tag] = out.detach()
+        del out, leaves
+        with torch.no_grad():
+            res[f"{tag}_forward_ms"] = events_ms(torch, lambda: fn(q, k, v),
+                                                 iters=5)
+    for name, got, want in [("out", outs["cp"], outs["blocked"])] + [
+            (f"d{x}", a, w) for x, a, w in zip("qkv", grads["cp"],
+                                               grads["blocked"],
+                                               strict=True)]:
+        d = (got.float() - want.float()).abs()
+        # the output elementwise against 1 + |blocked|; a gradient (a sum
+        # over 4,096 rows, rounded to bf16 as each path accumulates it)
+        # against its tensor's scale
+        scale = 1 + want.float().abs() if name == "out" else \
+            want.float().abs().max()
+        worst = float((d / scale).max())
+        res[f"{name}_max_abs"] = float(d.max())
+        res[f"{name}_worst_rel"] = worst
+        require(worst <= ATTN_TOL, f"cp {name}: {worst} > {ATTN_TOL}")
+    log(f"[distribution] cp at C = {DIST_CHUNKS} chunks on one card, "
+        f"({b}, {s}), {h} heads over {kh}, D = {hd}, bf16, causal, against "
+        f"blocked_causal_attention: max|d| out {res['out_max_abs']:.3e}, dq "
+        f"{res['dq_max_abs']:.3e}, dk {res['dk_max_abs']:.3e}, dv "
+        f"{res['dv_max_abs']:.3e} (out within {ATTN_TOL} of 1 + |blocked| "
+        f"elementwise, a gradient of its largest |blocked|; worst "
+        f"{max(res[k] for k in res if k.endswith('_worst_rel')):.3e}); "
+        f"forward {res['cp_forward_ms']:.3f} ms (cp) against "
+        f"{res['blocked_forward_ms']:.3f} ms (blocked)")
+    del q, k, v, g, outs, grads
+    torch.cuda.empty_cache()
+    return res
+
+
+def _quantize_scalar_divisor(torch, g):
+    """`compression.quantize` of g (zero-padded to whole blocks) as it was
+    before C33's repair: the scale divided by the Python scalar 127.0."""
+    from repro_torch.optim import compression
+
+    flat = torch.nn.functional.pad(g.reshape(-1).float(),
+                                   (0, (-g.numel()) % compression.BLOCK))
+    xb = flat.reshape(-1, compression.BLOCK)
+    scale = torch.clamp(torch.amax(torch.abs(xb), dim=1, keepdim=True)
+                        / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dist_compress(torch, dev, mesh):
+    """(3): compress_codes of configuration 9's first-step gradient
+    leaves on the card against the same leaves on the CPU, bit for bit;
+    compress_psum of one leaf through the NCCL group (one pod: the mean
+    of one pod's dequantized codes) and wire_bytes."""
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.optim import compression
+    from repro_torch.train import trainer
+
+    spec, cfg = train_config(TRAIN_LAYERS)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=TRAIN_STEPS, optimizer="adamw")
+    pc = ParallelConfig()
+    state = _train_state(torch, spec, cfg, tc, pc, dev)
+    batch = next(iter(_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev)))
+    names, params = zip(*state["params"].named_parameters(), strict=True)
+    loss, _ = trainer.make_loss_fn(spec, cfg, pc)(state["params"], batch)
+    grads = torch.autograd.grad(loss, params)
+    t = time.perf_counter()
+    differ, before = [], []
+    for name, gr in zip(names, grads, strict=True):
+        q, sc, _ = compression.compress_codes(gr, torch.zeros_like(gr))
+        cq, cs, _ = compression.compress_codes(gr.cpu(),
+                                               torch.zeros(gr.shape))
+        if not (torch.equal(q.cpu(), cq) and torch.equal(
+                sc.cpu().view(torch.int32), cs.view(torch.int32))):
+            differ.append(name)
+        # C33's fault, kept here to count it: the scale divided by the
+        # Python scalar 127.0 (on CUDA a product with its reciprocal)
+        bq, bs = _quantize_scalar_divisor(torch, gr)
+        cbq, cbs = _quantize_scalar_divisor(torch, gr.cpu())
+        if not (torch.equal(bq.cpu(), cbq) and torch.equal(
+                bs.cpu().view(torch.int32), cbs.view(torch.int32))):
+            before.append(name)
+    check_s = time.perf_counter() - t
+    g0 = grads[names.index("layers.0.attn.wq")]
+    g_hat, err = compression.compress_psum(g0, torch.zeros_like(g0),
+                                           mesh.get_group("data"))
+    q0, s0, _ = compression.compress_codes(g0, torch.zeros_like(g0))
+    one_pod = torch.equal(g_hat, compression.dequantize(
+        q0, s0, g0.numel()).reshape(g0.shape))
+    raw, comp = compression.wire_bytes(dict(zip(names, params,
+                                                strict=True)))
+    log(f"[distribution] compress_codes of configuration 9's first-step "
+        f"gradients, {len(names)} leaves "
+        f"({sum(p.numel() for p in params)} values): card vs CPU codes and "
+        f"scales bit-identical in {len(names) - len(differ)} of "
+        f"{len(names)} {differ[:4]}; with the scale divided by the "
+        f"Python scalar 127.0 (C33's fault) {len(names) - len(before)} of "
+        f"{len(names)} ({check_s:.1f} s); compress_psum of "
+        f"layers.0.attn.wq through the NCCL group of one rank == its "
+        f"dequantized codes {one_pod}; wire_bytes a cross-pod reduction: "
+        f"{raw} B f32, {comp} B int8 + scales ({raw / comp:.3f}x)")
+    require(not differ and one_pod, "compression on the card differs")
+    del state, grads, g0, g_hat, err, loss, batch
+    torch.cuda.empty_cache()
+    return {"leaves": len(names), "bit_identical": not differ,
+            "leaves_differing_with_scalar_divisor": len(before),
+            "one_pod_psum_exact": one_pod, "wire_bytes_f32": raw,
+            "wire_bytes_int8": comp, "check_s": check_s}
+
+
+def _dist_launch(torch):
+    """(4): launch.train --arch yi-6b --smoke for 3 steps under torchrun
+    --nproc-per-node 1 (an NCCL mesh of one rank) and as one process: the
+    same losses and params_md5."""
+    import os
+
+    argv = ["-m", "repro_torch.launch.train", "--arch", ARCH, "--smoke",
+            "--steps", str(DIST_LAUNCH_STEPS), "--log-every", "0",
+            "--no-preemption-guard"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
+                                         env.get("PYTHONPATH", "")])
+    out = {}
+    for tag, cmd in (("torchrun", [sys.executable, "-m",
+                                   "torch.distributed.run", "--standalone",
+                                   "--nproc-per-node", "1"] + argv),
+                     ("one process", [sys.executable] + argv)):
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=400, cwd=ROOT)
+        require(proc.returncode == 0,
+                f"launch.train ({tag}) failed: {proc.stderr[-3000:]}")
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        out[tag] = dict(json.loads(line[-1]), wall_s=time.perf_counter() - t)
+        log(f"[distribution] launch.train --arch {ARCH} --smoke "
+            f"({DIST_LAUNCH_STEPS} steps) {tag}: losses "
+            f"{out[tag]['losses']}, params_md5 {out[tag]['params_md5']} "
+            f"({out[tag]['wall_s']:.1f} s)")
+    same = out["torchrun"]["params_md5"] == out["one process"]["params_md5"] \
+        and out["torchrun"]["losses"] == out["one process"]["losses"]
+    require(same, "launch.train under torchrun differs from one process")
+    return out
+
+
+def _dist_state_bytes():
+    """(5): per-rank bytes of yi-6b's train state at full depth from the
+    port's state_defs and rules (arithmetic, no card)."""
+    from repro_torch import sharding as shd
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.models import registry
+    from repro_torch.train import trainer
+
+    spec = registry.get_spec(ARCH)
+    defs = trainer.state_defs(spec, spec.cfg, TrainConfig(optimizer="adamw"),
+                              ParallelConfig())
+    got = {f"{d}x{m}": shd.tree_nbytes(defs, {"data": d, "model": m})
+           for d, m in DIST_STATE_BYTES}
+    log(f"[distribution] arithmetic, not a card number: {ARCH}'s whole "
+        f"train state {shd.tree_nbytes(defs)} B; a rank's blocks at "
+        f"(data, model) {got}")
+    require(list(got.values()) == list(DIST_STATE_BYTES.values()),
+            f"state bytes {got}")
+    return got
+
+
+def phase_distribution(torch, dev, smi, plain):
+    """16. the dense trainer over a mesh (the Distribution slice), on an
+    NCCL group of one rank; every number from this card (`smi`, printed
+    first)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    log(f"[distribution] {smi}")
+    t0 = time.perf_counter()
+    _nccl_one_rank(torch, "nccl_store_dist")
+    try:
+        mesh = make_host_mesh(1, 1)
+        out = {"runs": _dist_runs(torch, dev, mesh, plain)}
+        out["cp"] = _dist_cp(torch, dev)
+        out["compress"] = _dist_compress(torch, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["launch"] = _dist_launch(torch)
+    out["state_bytes"] = _dist_state_bytes()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[distribution] phase took {out['seconds']:.1f} s")
+    return out
+
 
 def main():
     import torch
@@ -4460,9 +4791,13 @@ def main():
     del model
     torch.cuda.empty_cache()
     dense_parity = phase_dense_parity(torch, dev)
-    train_dense = phase_train_dense(torch, dev)
+    cfg9 = {}
+    train_dense = phase_train_dense(torch, dev, keep=keep_params(cfg9))
+    cfg9["run"] = train_dense["main"]
     moe = phase_moe(torch, dev, results)
     families = phase_families(torch, dev, results)
+    distribution = phase_distribution(torch, dev, smi, cfg9)
+    del cfg9
 
     kernels = [results[name] for name in ("sigmoid_grad",
                                           "segment_sum_sorted",
@@ -4478,7 +4813,7 @@ def main():
          "multirank": multirank, "p8": p8,
          "parity": parity, "sparse_serve": sparse_serve, "serve": served,
          "dense_parity": dense_parity, "train_dense": train_dense,
-         "moe": moe, "families": families},
+         "moe": moe, "families": families, "distribution": distribution},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))

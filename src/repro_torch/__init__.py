@@ -22,10 +22,14 @@ for module and never imports it. What it covers today:
   granite-34b, llama3-405b, chameleon-34b), MoE (phi3.5-moe, mixtral),
   the zamba2 hybrid, xlstm and the whisper encoder-decoder
   (`models.registry`, `train.serve.greedy_decode`, `launch.serve`);
-- the dense trainer on one card (`train.trainer`, `launch.train --arch`):
-  the training forward under autograd and remat, the dense optimizers,
+- the dense trainer (`train.trainer`, `launch.train --arch`): the
+  training forward under autograd and remat, the dense optimizers,
   microbatches and clipping, checkpoints in the reference's tree, and
-  fault tolerance (`runtime.fault_tolerance`).
+  fault tolerance (`runtime.fault_tolerance`), on one card or over a
+  mesh of ranks (`sharding`, `core.fsdp`, `models.parallel`: FSDP over
+  `data`, tensor and context parallelism over `model`, compressed
+  gradients across `pod`), and GPipe over a `pipe` dim
+  (`train.pipeline`).
 
 The map body (`sigmoid_grad`), the sorted reduces (`segment_sum_sorted`),
 topk_reduce's selection (`select_pack`) and prefill's attention

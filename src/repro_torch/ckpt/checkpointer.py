@@ -46,7 +46,12 @@ sharded leaves, every rank's block in rank order, is a collective), and
 only rank 0 touches the filesystem; the directory must be shared. A
 blocking save ends with a barrier, so no rank returns before the step is
 on disk. Restore reads the full arrays on every rank and cuts its blocks
-(`convert.state_from_numpy`).
+(`convert.state_from_numpy`). A dense train state over a mesh (its
+model carries a `core.fsdp.ParamLayout`) is saved as its whole leaves,
+each gathered on every rank just before rank 0 copies it to the host, so
+no rank holds more than one whole leaf at a time; the files are those of
+a one-card state: they restore at any mesh, or at none, into each rank's
+blocks (`runtime.elastic.reshard_tree`), and in either package.
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ import torch.distributed as dist
 
 from repro_torch.convert import (
     SHARDED,
+    params_tree,
     state_from_numpy,
     train_state_tree,
     tree_leaves,
@@ -69,9 +75,62 @@ from repro_torch.convert import (
 from repro_torch.runtime import multiprocess
 
 
-def _tree(state) -> dict:
+def _sharded(state) -> bool:
+    """A dense train state laid out over a mesh (its model carries the
+    layout)."""
+    return isinstance(state, dict) and getattr(state.get("params"),
+                                               "layout", None) is not None
+
+
+class _Whole:
+    """A leaf of a sharded state read as the whole leaf: gathered over the
+    mesh (a collective) only when it is copied to the host, so a save
+    holds one whole leaf at a time, never the whole state."""
+
+    def __init__(self, layout, name: str, block: torch.Tensor):
+        self.layout, self.name, self.block = layout, name, block.detach()
+        self.shape = torch.Size(layout.defs[name].shape)
+        self.dtype, self.is_cuda = block.dtype, block.is_cuda
+
+    def detach(self):
+        return self
+
+    def gather(self) -> torch.Tensor:
+        return self.layout.full(self.name, self.block)
+
+
+def _gathered(t):
+    return t.gather() if isinstance(t, _Whole) else t
+
+
+def _sharded_tree(state, whole: bool) -> dict:
+    """A sharded train state as the reference's tree (`params`, `opt`,
+    `step`, and `err` with `compress_pod_grads`): of `_Whole` leaves, or
+    of this rank's blocks."""
+    model = state["params"]
+    layout = model.layout
+
+    def tree(values: dict) -> dict:
+        if whole:
+            values = {n: _Whole(layout, n, t) for n, t in values.items()}
+        return params_tree(model, values)
+
+    out = {"params": tree(dict(model.named_parameters())),
+           "opt": {k: tree(v) if isinstance(v, dict) else v
+                   for k, v in state["opt"].items()},
+           "step": state["step"]}
+    if "err" in state:
+        out["err"] = tree(state["err"])
+    return out
+
+
+def _tree(state, whole: bool = True) -> dict:
     """A dict state as a tree: a dense train state (its params a module)
-    as the reference's tree over its tensors, any other dict as it is."""
+    as the reference's tree over its tensors, any other dict as it is. A
+    sharded state's tree holds its whole leaves (`whole`: gathered as
+    they are copied) or this rank's blocks."""
+    if _sharded(state):
+        return _sharded_tree(state, whole)
     if isinstance(state.get("params"), torch.nn.Module):
         return train_state_tree(state)
     return state
@@ -105,6 +164,8 @@ def _as_tensor(leaf):
     """A leaf as a detached tensor, or a list of them (a stacked leaf)."""
     if isinstance(leaf, list):
         return [t.detach() for t in leaf]
+    if isinstance(leaf, _Whole):
+        return leaf
     if not torch.is_tensor(leaf):
         leaf = torch.as_tensor(np.asarray(leaf))
     return leaf.detach()
@@ -144,9 +205,9 @@ class Checkpointer:
                 shape, dtype=first.dtype, pin_memory=pinned)
         if isinstance(leaf, list):
             for part, t in zip(buf, leaf, strict=True):
-                part.copy_(t, non_blocking=pinned)
+                part.copy_(_gathered(t), non_blocking=pinned)
         else:
-            buf.copy_(leaf, non_blocking=pinned)
+            buf.copy_(_gathered(leaf), non_blocking=pinned)
         return buf
 
     def save(self, step: int, state, extra: dict | None = None,
@@ -185,9 +246,12 @@ class Checkpointer:
             "time": time.time(),
         }
         if not multiprocess.is_primary():
+            for _, leaf in leaves:      # a sharded state's gathers, in order
+                for t in leaf if isinstance(leaf, list) else [leaf]:
+                    _gathered(t)
             if block:
                 multiprocess.barrier()
-            return      # the gather above was the collective part
+            return      # the gathers were the collective part
         host = [self._snapshot(i, t) for i, (_, t) in enumerate(leaves)]
         copied = None
         cuda = [_first(t).device for _, t in leaves if _first(t).is_cuda]
@@ -312,16 +376,28 @@ class Checkpointer:
 
 
 def _restore_tree(like: dict, arrs: list, manifest: dict) -> dict:
-    leaves = _named_leaves(like)
+    leaves = _named_leaves(like)        # a sharded state's: whole, lazy
     paths = [path for path, _ in leaves]
     if paths != manifest["paths"]:
         raise ValueError(f"the checkpoint's leaves {manifest['paths']} are "
                          f"not the state's {paths}")
+    for (path, leaf), arr in zip(leaves, arrs, strict=True):
+        if list(arr.shape) != _shape(leaf):
+            raise ValueError(f"{path}: saved shape {list(arr.shape)}, "
+                             f"the state's {_shape(leaf)}")
+    if _sharded(like):
+        from repro_torch.runtime.elastic import reshard_tree
+
+        tree: dict = {}
+        for (path, _), arr in zip(tree_leaves(_tree(like, whole=False)),
+                                  arrs, strict=True):
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = arr
+        return reshard_tree(tree, like)
     with torch.no_grad():
-        for (path, leaf), arr in zip(leaves, arrs, strict=True):
-            if list(arr.shape) != _shape(leaf):
-                raise ValueError(f"{path}: saved shape {list(arr.shape)}, "
-                                 f"the state's {_shape(leaf)}")
+        for (_, leaf), arr in zip(leaves, arrs, strict=True):
             parts = zip(leaf, arr) if isinstance(leaf, list) \
                 else [(leaf, arr)]
             for t, a in parts:

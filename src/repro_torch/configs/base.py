@@ -14,12 +14,13 @@ port serves and trains every family of the reference: `dense`, `vlm`,
 `encdec` (whisper).
 
 `ParallelConfig` and `TrainConfig` are copies of the reference's, field
-for field. On one card the trainer reads `remat`, `microbatches` and
-`accum_dtype`; `seq_shard` is a sharding constraint, a no-op outside a
-mesh as in the reference, and `scan_layers` has no meaning for the
-port's loop over layers. The fields that need more than one card
-(`attn_mode="cp"`, `compress_pod_grads`, `sparse_embed`) make the
-trainer raise (`train.trainer.check_parallel`).
+for field. The trainer reads `remat`, `microbatches` and `accum_dtype`;
+over a mesh also `attn_mode` ("cp": context-parallel attention over
+`model`) and `compress_pod_grads` (int8 gradients across `pod`), each
+the reference's no-op without that mesh dim; `seq_shard` is a layout
+that does not change the numbers (the port's tensor-parallel stream is
+always S-sharded), and `scan_layers` has no meaning for the port's loop
+over layers. `sparse_embed` is read by neither package's trainer.
 
 The reference module's TPU hardware constants are deliberately not
 carried over; the port's speed figures come from runs on the card (see

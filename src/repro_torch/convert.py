@@ -165,10 +165,11 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_to_numpy(model) -> dict:
-    """The model's parameters as the reference's tree of f32 numpy arrays,
-    layers stacked on a leading axis."""
-    return _map(params_tree(model),
+def params_to_numpy(model, values: dict | None = None) -> dict:
+    """The model's parameters (or `values`, name -> tensor) as the
+    reference's tree of f32 numpy arrays, layers stacked on a leading
+    axis."""
+    return _map(params_tree(model, values),
                 lambda leaf: _to_numpy(leaf, torch.float32))
 
 

@@ -285,8 +285,9 @@ def _metrics(ctx, probs, labels, nll, overflow) -> dict:
 
     tot = _psum(torch.stack([loss, acc, overflow.to(loss.dtype)]).to(
         torch.float64), ctx)
-    return {"loss": (tot[0] / ctx.num_shards).to(torch.float32),
-            "accuracy": (tot[1] / ctx.num_shards).to(torch.float32),
+    n = tot.new_full((), float(ctx.num_shards))
+    return {"loss": (tot[0] / n).to(torch.float32),
+            "accuracy": (tot[1] / n).to(torch.float32),
             "overflow": tot[2].to(torch.int32)}
 
 
@@ -349,7 +350,10 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *, mesh=None,
                                       state.hot, state.hot_ids, ids, vals)
         grads_slot, probs, nll = ops.sigmoid_grad(vals, theta, labels)
         if cfg.grad_scale == "mean":
-            grads_slot = grads_slot / float(batch_size)
+            # a tensor divisor: on CUDA a Python scalar divides as a
+            # product with its reciprocal, not as the reference's division
+            grads_slot = grads_slot / grads_slot.new_full(
+                (), float(batch_size))
         grad_cold, grad_hot, carry = _device_grads(
             cfg, strategy, ctx, state.cold, grads_slot, fwd, aux,
             state.strat, stateful, accumulating)

@@ -25,8 +25,17 @@ a `StragglerWatchdog`. A rerun resumes from the newest checkpoint at the
 exact data position; under `runtime.fault_tolerance.run_with_restarts`
 a failed run restarts from it. It prints the reference's final line and
 one JSON line (losses, last step, straggler events, the md5 of the final
-params). More than one rank raises: the dense trainer over several cards
-is ROADMAP A12 (Distribution).
+params). Under torchrun (`--mesh-data`, `--mesh-model`, `--pods`; NCCL
+on the cards, gloo with `--device cpu`) it trains over a mesh of the
+ranks (`train.trainer.make_train_step(..., mesh)`: FSDP over `data`,
+tensor parallelism over `model`): every rank reads the same global batch,
+as the reference's loader gives every process, and trains its rows;
+checkpoints hold the whole leaves (any mesh restores them), and rank 0
+prints the same lines, the md5 over the gathered params:
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch granite-8b --smoke \
+        --mesh-data 2 --mesh-model 2 --device cpu
 
 Sparse mode's data plane is the reference's (`--data-dir`, `--hosts`,
 `--host-id`, `--shuffle`, `--prefetch`, `--sparse-batches`): a
@@ -106,19 +115,53 @@ def make_loader(args, cfg, device) -> ShardedLoader:
 
 def params_md5(model) -> str:
     """md5 of the params as the reference's tree of f32 arrays, leaves in
-    its order."""
+    its order (over a mesh, of the whole leaves: every rank calls it)."""
     h = hashlib.md5()
-    for _, leaf in tree_leaves(params_to_numpy(model)):
+    for _, leaf in tree_leaves(params_to_numpy(model,
+                                               trainer.full_params(model))):
         h.update(np.ascontiguousarray(leaf).tobytes())
     return h.hexdigest()
 
 
-def train_loop(args, fail_injector=None, guard=None) -> dict:
+def _mesh_dims(args, world: int) -> tuple[int, int, int]:
+    """(pods, data, model) of `world` ranks: `--mesh-data` 0 takes the
+    ranks that `--mesh-model` and `--pods` leave."""
+    data = args.mesh_data or world // (args.mesh_model * args.pods)
+    return args.pods, data, args.mesh_model
+
+
+def dense_mesh(args):
+    """The (pods, data, model) mesh of torchrun's ranks."""
+    pods, data, model = _mesh_dims(args, dist.get_world_size())
+    return make_host_mesh(data, model, pods)
+
+
+def dense_mesh_refusal(args, world: int) -> str | None:
+    """Why `world` ranks cannot train `args.arch` over the mesh the flags
+    ask for (refused before any group starts), or None."""
+    pods, data, model = _mesh_dims(args, world)
+    if pods * data * model != world:
+        return (f"a (pods {pods}, data {data}, model {model}) mesh needs "
+                f"{pods * data * model} ranks; torchrun started {world}")
+    spec = registry.get_spec(args.arch)
+    cfg = registry.smoke_config(args.arch) if args.smoke else spec.cfg
+    try:
+        trainer.check_parallel(ParallelConfig(microbatches=args.microbatches),
+                               cfg, {"pod": pods, "data": data,
+                                     "model": model})
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def train_loop(args, fail_injector=None, guard=None, mesh=None,
+               device=None) -> dict:
     """The dense training loop: train `args.arch` up to `args.steps` steps,
-    resuming from `args.ckpt`'s newest checkpoint. `fail_injector` (a
+    resuming from `args.ckpt`'s newest checkpoint, on one device or over
+    `mesh` (this rank's blocks on `device`). `fail_injector` (a
     `FailureInjector`) may raise before a step; `guard` replaces the
     `PreemptionGuard` the loop would install (tests trigger it)."""
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if device is None else device)
     spec = registry.get_spec(args.arch)
     cfg = registry.smoke_config(args.arch) if args.smoke else spec.cfg
     tc = TrainConfig(learning_rate=args.lr, warmup_steps=args.warmup,
@@ -132,7 +175,7 @@ def train_loop(args, fail_injector=None, guard=None) -> dict:
 
     state = trainer.init_state(
         spec, cfg, tc, pc, torch.Generator(device=device).manual_seed(tc.seed),
-        device)
+        device, mesh=mesh)
     start_step = 0
     if ck is not None and ck.latest_step() is not None:
         state, manifest = ck.restore(state)
@@ -144,7 +187,7 @@ def train_loop(args, fail_injector=None, guard=None) -> dict:
             start_step = extra["data_step"]
             loader.seek(Cursor(0, start_step))
         log.info("resumed from step %d", start_step)
-    step_fn = trainer.make_train_step(spec, cfg, tc, pc)
+    step_fn = trainer.make_train_step(spec, cfg, tc, pc, mesh)
 
     def save(step, block):
         ck.save(step, state,
@@ -181,6 +224,24 @@ def train_loop(args, fail_injector=None, guard=None) -> dict:
             ck.wait()
     return {"state": state, "losses": losses, "last_step": i,
             "straggler_events": watchdog.events}
+
+
+def dense_ranks(args) -> dict:
+    """Join torchrun's process group, train over the ranks' mesh, and
+    leave the group; the summary is rank 0's (every rank computes it)."""
+    device = init_from_env(args.device)
+    try:
+        out = train_loop(args, mesh=dense_mesh(args), device=device)
+        return dense_summary(args, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def dense_summary(args, out) -> dict:
+    return {"arch": args.arch, "losses": out["losses"],
+            "last_step": out["last_step"],
+            "straggler_events": out["straggler_events"],
+            "params_md5": params_md5(out["state"]["params"])}
 
 
 def sparse_loop(args) -> dict:
@@ -366,19 +427,26 @@ def main(argv=None):
             ap.error("--arch is required (or pass --sparse): a model zoo "
                      "id of the dense, vlm, moe, hybrid, ssm or encdec "
                      "family")
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-            ap.error("the dense trainer is one process on one card; over "
-                     "several ranks it is ROADMAP A12 (Distribution)")
+        if "RANK" in os.environ:              # under torchrun: a mesh
+            refusal = dense_mesh_refusal(args,
+                                         int(os.environ["WORLD_SIZE"]))
+            if refusal:
+                ap.error(refusal)
+        elif args.mesh_data > 1 or args.mesh_model > 1 or args.pods > 1:
+            ap.error("--mesh-data, --mesh-model and --pods lay out the "
+                     "ranks of a torchrun: start the program with "
+                     "torchrun")
         logging.basicConfig(level=logging.INFO)
-        out = train_loop(args)
-        if out["losses"]:
-            print(f"final loss {out['losses'][-1]:.4f} after "
-                  f"{out['last_step']} steps")
-        summary = {"arch": args.arch, "losses": out["losses"],
-                   "last_step": out["last_step"],
-                   "straggler_events": out["straggler_events"],
-                   "params_md5": params_md5(out["state"]["params"])}
-        print(json.dumps(summary), flush=True)
+        if "RANK" in os.environ:
+            summary = dense_ranks(args)
+            rank = int(os.environ["RANK"])
+        else:
+            summary, rank = dense_summary(args, train_loop(args)), 0
+        if rank == 0:
+            if summary["losses"]:
+                print(f"final loss {summary['losses'][-1]:.4f} after "
+                      f"{summary['last_step']} steps")
+            print(json.dumps(summary), flush=True)
         return summary
     if args.hosts < 1 or not -1 <= args.host_id < args.hosts:
         ap.error(f"--host-id {args.host_id} is not a host of --hosts "

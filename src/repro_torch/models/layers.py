@@ -369,12 +369,10 @@ def attention_block(p, x, cfg: ModelConfig, tables, *, causal: bool = True,
     Causal self-attention takes `blocked_causal_attention`; with
     `causal=False`, or cross-attention over `kv_x` (keys and values
     projected from it, without RoPE), `_bidirectional_blocked`.
-    `attn_mode="cp"` (context parallel) needs a mesh: ROADMAP A12
-    (Distribution)."""
-    if attn_mode == "cp":
-        raise NotImplementedError(
-            "attn_mode='cp' (context-parallel attention) needs a mesh of "
-            "cards: ROADMAP A12 (Distribution)")
+    `attn_mode="cp"` (context parallel) is the same here: this block
+    sees the whole sequence, and without a `model` dim of more than one
+    rank the reference's `context_parallel_attention` falls back to the
+    blocked attention (over a mesh, `models.parallel.cp_attention`)."""
     q = project_q(p, x, cfg)
     k, v = project_kv(p, x if kv_x is None else kv_x, cfg)
     if tables is not None:
@@ -387,6 +385,84 @@ def attention_block(p, x, cfg: ModelConfig, tables, *, causal: bool = True,
     else:
         out = blocked_causal_attention(q, k, v, window=cfg.sliding_window)
     return project_out(p, out)
+
+
+def cp_attention_chunk(q, k, v, chunk: int, chunks: int, *,
+                       causal: bool = True, window: int = 0,
+                       kv_block: int = 1024):
+    """Chunk `chunk` of `chunks` of context-parallel attention: q (B, S/C,
+    H, hd) holds the query rows of global positions chunk * S/C .. ; k and
+    v (B, S, KH, hd) the whole sequence. An online softmax over kv blocks
+    of `kv_block` (one block when it does not divide S), masked by global
+    positions (causal, causal within a window of `window` keys, or
+    full), scores and the probabilities' product with V in f32 as the
+    reference's `context_parallel_attention` computes each chunk. A kv
+    block that every query row of the chunk masks whole is skipped: the
+    reference's step over it changes no bit of the result (before the
+    first visible block its sums are wiped by a zero correction, after
+    it every probability is exp(-1e30 - m) = 0). -> (B, S/C, H, hd) in
+    q's dtype."""
+    b, s_loc, h, hd = q.shape
+    k = _repeat_kv(k, h // k.shape[2])
+    v = _repeat_kv(v, h // v.shape[2])
+    skv = k.shape[1]
+    kb = skv if skv % kv_block else kv_block
+    scale = 1.0 / math.sqrt(hd)
+    q0 = chunk * s_loc
+    qt = q.transpose(1, 2).to(torch.float32).reshape(b * h, s_loc, hd)
+    kt = k.transpose(1, 2).reshape(b * h, skv, hd)
+    vt = v.transpose(1, 2).reshape(b * h, skv, hd)
+    qpos = torch.arange(q0, q0 + s_loc, device=q.device)[:, None]
+    m = torch.full((b * h, s_loc), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b * h, s_loc), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b * h, s_loc, hd), dtype=torch.float32,
+                      device=q.device)
+    for k0 in range(0, skv, kb):
+        if causal and (k0 > q0 + s_loc - 1 or (
+                window and k0 + kb - 1 <= q0 - window)):
+            continue
+        s = torch.bmm(qt, kt[:, k0:k0 + kb].to(torch.float32).transpose(
+            1, 2)) * scale
+        if causal:
+            kpos = torch.arange(k0, k0 + kb, device=q.device)[None, :]
+            mask = qpos >= kpos
+            if window:
+                mask = mask & (kpos > qpos - window)
+            s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + common.bmm_f32(
+            p.to(v.dtype), vt[:, k0:k0 + kb])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, s_loc, hd).transpose(1, 2).to(q.dtype)
+
+
+def context_parallel_attention(q, k, v, *, group=None, causal: bool = True,
+                               window: int = 0, kv_block: int = 1024):
+    """Context-parallel attention over the C ranks of `group` (the mesh's
+    `model` dim): q, k, v (B, S/C, ., hd) are this rank's S-shards; q and
+    the output stay sharded and only K and V are all-gathered over S
+    (differentiable: the backward reduce-scatters their gradients), then
+    `cp_attention_chunk` with this rank's chunk index. Without a group of
+    more than one rank (q, k, v the whole sequence) it is the blocked
+    attention, causal or not, as the reference falls back."""
+    import torch.distributed as dist
+
+    from repro_torch.core import fsdp
+
+    if group is None or dist.get_world_size(group) == 1:
+        if not causal:
+            return _bidirectional_blocked(q, k, v)
+        return blocked_causal_attention(q, k, v, window=window)
+    k = fsdp.gather(k, group, 1)
+    v = fsdp.gather(v, group, 1)
+    return cp_attention_chunk(q, k, v, dist.get_rank(group),
+                              dist.get_world_size(group), causal=causal,
+                              window=window, kv_block=kv_block)
 
 
 def causal_self_attention(q, k, v, *, window: int = 0):

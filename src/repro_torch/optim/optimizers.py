@@ -46,10 +46,11 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float, norm_fn=global_norm):
     """Scale the gradients IN PLACE by min(1, max_norm / norm); returns
-    (grads, norm before clipping)."""
-    norm = global_norm(grads)
+    (grads, norm before clipping). `norm_fn(grads)` is the norm (over a
+    mesh, one that sums every rank's blocks)."""
+    norm = norm_fn(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads.values():
         g.mul_(scale)

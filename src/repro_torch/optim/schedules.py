@@ -20,9 +20,14 @@ def warmup_cosine(lr: float, warmup_steps: int, total_steps: int,
                   final_frac: float = 0.1):
     def fn(step):
         step = step.to(torch.float32)
-        warm = lr * torch.clamp(step / max(warmup_steps, 1), max=1.0)
-        prog = torch.clamp((step - warmup_steps)
-                           / max(total_steps - warmup_steps, 1), 0.0, 1.0)
+        # tensor divisors: on CUDA a Python scalar divides as a product
+        # with its reciprocal, not as the reference's division
+        warm = lr * torch.clamp(
+            step / step.new_full((), float(max(warmup_steps, 1))), max=1.0)
+        prog = torch.clamp(
+            (step - warmup_steps)
+            / step.new_full((), float(max(total_steps - warmup_steps, 1))),
+            0.0, 1.0)
         cos = final_frac * lr + (1 - final_frac) * lr * 0.5 * (
             1 + torch.cos(math.pi * prog))
         return torch.where(step < warmup_steps, warm, cos)

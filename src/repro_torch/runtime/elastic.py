@@ -7,19 +7,51 @@ table before each rank takes its block; the strategy carry is per-rank
 state of the old geometry and resets. `reshard_data_state` is the data
 plane's case: a loader cursor's host-local step was recorded against one
 shard assignment, and the new host count needs a fresh one.
-`reshard_tree` (the dense face's leaves under new shardings) comes with
-the dense trainer (ROADMAP A12).
+`reshard_tree` is the dense face's: a train state's whole leaves (a
+checkpoint's, saved at any mesh) cut into this rank's blocks of a
+state laid out over another mesh.
 """
 from __future__ import annotations
 
 from collections.abc import Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import DPMRConfig
-from repro_torch.convert import state_from_numpy
+from repro_torch.convert import _pairs, state_from_numpy
 from repro_torch.core import dpmr
 from repro_torch.data.ownership import reassign_state
+
+
+@torch.no_grad()
+def reshard_tree(tree: dict, like: dict) -> dict:
+    """Copy the WHOLE arrays of a dense train state's tree (the
+    reference's: `params`, `opt`, `step`, and `err` if `like` has it;
+    layers stacked on a leading axis) into this rank's blocks of `like`,
+    a train state over a mesh (`trainer.init_state(..., mesh=...)`), IN
+    PLACE; returns `like`."""
+    model = like["params"]
+    layout = model.layout
+
+    def put(blocks: dict, subtree: dict) -> None:
+        for name, path, layer in _pairs(model):
+            leaf = subtree
+            for key in path:
+                leaf = leaf[key]
+            leaf = np.asarray(leaf if layer is None else leaf[layer])
+            blocks[name].copy_(layout.shard(name, torch.as_tensor(leaf)))
+
+    put(dict(model.named_parameters()), tree["params"])
+    for key, node in like["opt"].items():
+        if isinstance(node, dict):
+            put(node, tree["opt"][key])
+        else:
+            node.copy_(torch.as_tensor(np.asarray(tree["opt"][key])))
+    like["step"].copy_(torch.as_tensor(np.asarray(tree["step"])))
+    if "err" in like:
+        put(like["err"], tree["err"])
+    return like
 
 
 def reshard_dpmr_state(state: Sequence, cfg: DPMRConfig, new_mesh=None,

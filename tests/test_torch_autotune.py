@@ -14,6 +14,7 @@ from hypothesis import given, settings, strategies as st
 
 from repro.api import autotune as jax_autotune
 from repro.api.strategies import StrategyContext as JaxContext
+from repro.api.strategies import list_strategies as jax_list
 from repro.configs.base import DPMRConfig as JaxConfig
 from repro.core import dpmr as jax_dpmr
 from repro.launch.mesh import make_host_mesh
@@ -28,6 +29,10 @@ from repro_torch.core import dpmr
 
 SET = dict(max_examples=25, deadline=None)
 BUILTINS = tuple(list_strategies())
+# the reference's shipped registry, read at collection: tests/test_dpmr.py
+# registers strategies of its own into it when it runs, and a test
+# worker may run that file first
+JAX_BUILTINS = tuple(jax_list())
 F, K = 1 << 12, 16
 # (P, pods, global batch): one card, the flat (8,) mesh, (pod 2, data 4)
 GEOMETRIES = {"1": (1, 1, 256), "8": (8, 1, 256), "2x4": (8, 2, 256)}
@@ -47,9 +52,7 @@ def _contexts(geo, frac=0.05):
 
 
 def test_registries_match():
-    from repro.api.strategies import list_strategies as jax_list
-
-    assert BUILTINS == tuple(jax_list())
+    assert BUILTINS == JAX_BUILTINS
 
 
 @pytest.mark.parametrize("bw", BANDWIDTHS, ids=lambda b: f"{b[0]:g}-{b[1]:g}")
@@ -59,13 +62,14 @@ def test_ranking_matches_reference(geo, bw, require_exact):
     ctx, jctx = _contexts(geo)
     got = autotune.score_strategies(ctx, bw, require_exact=require_exact)
     want = jax_autotune.score_strategies(
-        jctx, jax_autotune.WireBandwidth(*bw), require_exact=require_exact)
+        jctx, jax_autotune.WireBandwidth(*bw), require_exact=require_exact,
+        strategies=list(JAX_BUILTINS))
     assert [(s.name, tuple(s.wire), s.cost_s, s.lossy) for s in got] == \
         [(s.name, tuple(s.wire), s.cost_s, s.lossy) for s in want]
     assert autotune.choose_strategy(ctx, bw, require_exact=require_exact) \
         == jax_autotune.choose_strategy(
             jctx, jax_autotune.WireBandwidth(*bw),
-            require_exact=require_exact)
+            require_exact=require_exact, strategies=list(JAX_BUILTINS))
 
 
 def test_defaults_are_this_hardwares():

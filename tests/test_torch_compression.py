@@ -76,3 +76,70 @@ def test_topk_select_matches_lax_top_k(shape, k):
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
     assert (mask.sum(-1) == k).all()
+
+
+def _inexact_blocks(nblocks, seed):
+    """Blocks each of whose max|x| / 127 is not the product max|x| *
+    (1 / 127) in f32: where a division by a scalar run as a product with
+    its reciprocal (CUDA's) gives other scales, and so other codes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < nblocks:
+        b = rng.normal(size=compression.BLOCK).astype(np.float32)
+        amax = np.max(np.abs(b))
+        if amax / np.float32(127.0) != amax * (np.float32(1.0)
+                                               / np.float32(127.0)):
+            out.append(b)
+    return np.concatenate(out)
+
+
+def test_quantize_scales_are_a_division():
+    """The scale is max|x| / 127 as an IEEE f32 division, bit for bit as
+    the reference's, on blocks where the product with the reciprocal
+    rounds otherwise (ROADMAP C33)."""
+    x = _inexact_blocks(4, 11)
+    q, s = compression.quantize(torch.from_numpy(x))
+    jq, js = jcomp.quantize(jnp.asarray(x))
+    amax = np.max(np.abs(x.reshape(-1, compression.BLOCK)), axis=1)
+    np.testing.assert_array_equal(s.numpy()[:, 0], amax / np.float32(127.0))
+    np.testing.assert_array_equal(s.numpy().view(np.int32),
+                                  np.asarray(js).view(np.int32))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+
+
+PSUM_SHAPES = {"blocks": (3, 2048), "ragged": (50, 100)}   # 5,000 values
+
+
+@pytest.mark.parametrize("name", sorted(PSUM_SHAPES))
+def test_compress_codes_bit_exact(name):
+    """The wire format of g + err, a leaf of whole blocks and one that is
+    not (5,000 values: a padded last block), as the reference's
+    compress_psum quantizes it: codes, scales and the new error."""
+    rng = np.random.default_rng(7)
+    g = rng.normal(size=PSUM_SHAPES[name]).astype(np.float32)
+    e = (1e-2 * rng.normal(size=g.shape)).astype(np.float32)
+    q, s, err = compression.compress_codes(torch.from_numpy(g),
+                                           torch.from_numpy(e))
+    flat = jnp.pad(jnp.asarray(g).reshape(-1) + jnp.asarray(e).reshape(-1),
+                   (0, (-g.size) % jcomp.BLOCK))
+    jq, js = jcomp.quantize(flat)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy().view(np.int32),
+                                  np.asarray(js).view(np.int32))
+    jerr = flat[:g.size] - jcomp.dequantize(jq, js, g.size)
+    np.testing.assert_array_equal(
+        err.numpy().view(np.int32),
+        np.asarray(jerr).reshape(g.shape).view(np.int32))
+
+
+def test_wire_bytes_and_error_state_match():
+    rng = np.random.default_rng(3)
+    shapes = {"a": (64, 48), "b": (7,), "c": (3, 2048)}
+    params = {k: rng.normal(size=s).astype(np.float32)
+              for k, s in shapes.items()}
+    tparams = {k: torch.from_numpy(v) for k, v in params.items()}
+    assert compression.wire_bytes(tparams) == jcomp.wire_bytes(
+        {k: jnp.asarray(v) for k, v in params.items()})
+    err = compression.init_error_state(tparams)
+    assert all(err[k].dtype == torch.float32 and tuple(err[k].shape) == s
+               and not err[k].any() for k, s in shapes.items())

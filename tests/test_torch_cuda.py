@@ -1035,3 +1035,102 @@ def test_family_serving_on_the_card_matches_the_cpu(cuda, arch):
                 lh, ch = spec.decode_step(cpu, ch, tok, cfg)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# ---------------------------------------------------------------------------
+# the Distribution slice on one card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16),
+                                           (False, 0)])
+def test_cp_chunks_on_the_card_equal_blocked(cuda, causal, window):
+    """Context-parallel attention's per-chunk function, all 4 chunks on
+    the card with the whole K and V, against the blocked attention in
+    f32 (TF32 off), within 1e-5."""
+    from repro_torch.models import layers
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        q = torch.randn((2, 64, 4, 16), generator=gen, device=cuda)
+        k, v = (torch.randn((2, 64, 2, 16), generator=gen, device=cuda)
+                for _ in range(2))
+        got = torch.cat([layers.cp_attention_chunk(
+            q[:, c * 16:(c + 1) * 16], k, v, c, 4, causal=causal,
+            window=window, kv_block=16) for c in range(4)], dim=1)
+        want = layers.blocked_causal_attention(
+            q, k, v, window=window, q_block=16, kv_block=16) if causal \
+            else layers._bidirectional_blocked(q, k, v, q_block=16,
+                                               kv_block=16)
+        assert float((got - want).abs().max()) < ATOL
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_step_equals_no_mesh(cuda, tmp_path):
+    """Two steps of granite-8b's smoke config through an NCCL mesh of one
+    rank (data 1, model 1) and through the one-card trainer, from the
+    same draws: losses and params bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import trainer
+
+    spec, cfg = registry.get_spec("granite-8b"), \
+        registry.smoke_config("granite-8b")
+    tc, pc = TrainConfig(learning_rate=1e-2, warmup_steps=0), \
+        ParallelConfig()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (2, 4, 33), generator=gen,
+                        device=cuda)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path}/store", rank=0,
+        world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        runs = {}
+        for tag, mesh in (("plain", None), ("mesh", make_host_mesh(1, 1))):
+            state = trainer.init_state(
+                spec, cfg, tc, pc, torch.Generator(device=cuda).manual_seed(0),
+                cuda, mesh=mesh)
+            step = trainer.make_train_step(spec, cfg, tc, pc, mesh)
+            losses = []
+            for t in tok:
+                state, m = step(state, {"tokens": t[:, :-1],
+                                        "labels": t[:, 1:]})
+                losses.append(float(m["loss"]))
+            runs[tag] = (losses, {n: p.detach().cpu() for n, p in
+                                  state["params"].named_parameters()})
+    finally:
+        dist.destroy_process_group()
+    assert runs["mesh"][0] == runs["plain"][0]
+    for name, p in runs["plain"][1].items():
+        assert torch.equal(runs["mesh"][1][name], p), name
+
+
+@pytest.mark.gpu
+def test_quantize_codes_and_scales_card_equals_cpu(cuda):
+    """`compression.quantize` on the card gives the CPU's codes and scales
+    bit for bit, on blocks each of whose max|x| / 127 differs from the
+    product max|x| * (1 / 127) in f32 (ROADMAP C33: a division by the
+    Python scalar 127.0 ran on CUDA as that product)."""
+    from repro_torch.optim import compression
+
+    gen = torch.Generator().manual_seed(0)
+    blocks = []
+    while len(blocks) < 64:
+        b = torch.randn(compression.BLOCK, generator=gen)
+        amax = b.abs().max()
+        if amax / torch.tensor(127.0) != amax * (1 / torch.tensor(127.0)):
+            blocks.append(b)
+    x = torch.cat(blocks)
+    q, s = compression.quantize(x.to(cuda))
+    cq, cs = compression.quantize(x)
+    assert torch.equal(q.cpu(), cq)
+    assert torch.equal(s.cpu().view(torch.int32), cs.view(torch.int32))

@@ -388,7 +388,7 @@ def test_core_api_exports_the_reference_less_the_dense_helpers():
     import repro.core.api as jax_api
     import repro_torch.core.api as api
 
-    left_out = {"dpmr_dense_linear", "fsdp_specs"}        # ROADMAP A12
+    left_out = set()           # the dense helpers came with the mesh
     assert set(api.__all__) == set(jax_api.__all__) - left_out
     for name in api.__all__:
         assert getattr(api, name) is not None

@@ -174,12 +174,13 @@ def test_serving_without_device_needs_a_card():
 
 
 def test_unported_model_features_raise(capsys):
-    """Every arch of the reference resolves; an unknown id, context-
-    parallel attention (a mesh: ROADMAP A12) and a dense arch under
-    --sparse raise."""
+    """Every arch of the reference resolves; an unknown id and a dense
+    arch under --sparse raise; context-parallel attention without a mesh
+    is the blocked attention (the reference's fallback without a `model`
+    dim), bit for bit."""
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.launch import serve as launch_serve
-    from repro_torch.models import layers, registry
+    from repro_torch.models import common, layers, registry
 
     assert len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
@@ -189,8 +190,15 @@ def test_unported_model_features_raise(capsys):
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("not-an-arch")
     cfg = registry.smoke_config("zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        layers.attention_block(None, None, cfg, None, attn_mode="cp")
+    spec = registry.get_spec("zamba2-2.7b")
+    model = common.init_params(spec.model(cfg, device="cpu"),
+                               torch.Generator().manual_seed(0))
+    x = torch.randn(2, 16, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    blocks = {mode: layers.attention_block(model.shared.attn, x, cfg, None,
+                                           attn_mode=mode)
+              for mode in ("auto", "cp")}
+    assert torch.equal(blocks["cp"], blocks["auto"])
     with pytest.raises(SystemExit):
         launch_serve.main(["--sparse", "--arch", "yi-6b"])
     assert "is a dense LM config" in capsys.readouterr().err

@@ -594,19 +594,32 @@ def test_launch_train_ranks_are_hosts_as_in_the_reference(launched):
     assert emulated["hosts"] == 1
 
 
-@pytest.mark.parametrize("argv,names", [
-    (["--sparse", "--hosts", "2", "--host-id", "2"], "not a host of"),
-    (["--sparse", "--host-id", "-2"], "not a host of"),
-    (["--sparse", "--save-every", "0"], "--save-every must be"),
-    (["--strategy", "a2a"], "--arch is required")])
-def test_launch_train_refuses_what_is_not_ported(argv, names, capsys):
+@pytest.mark.parametrize("argv,names,world", [
+    (["--sparse", "--hosts", "2", "--host-id", "2"], "not a host of", None),
+    (["--sparse", "--host-id", "-2"], "not a host of", None),
+    (["--sparse", "--save-every", "0"], "--save-every must be", None),
+    (["--strategy", "a2a"], "--arch is required", None),
+    (["--arch", "yi-6b", "--smoke", "--mesh-model", "2"], "torchrun", None),
+    (["--arch", "yi-6b", "--smoke", "--mesh-data", "3"], "needs 3 ranks",
+     "4"),
+    (["--arch", "zamba2-2.7b", "--smoke", "--mesh-model", "2"],
+     "ROADMAP A12a", "4")])
+def test_launch_train_refuses_what_is_not_ported(argv, names, world,
+                                                 monkeypatch, capsys):
     """The dense mode needs an --arch (every family of the reference is
     ported); host flags that name no host, and a save interval below 1,
-    are refused before any group starts."""
+    are refused before any group starts. So are, in the dense mode, mesh
+    flags without torchrun, a mesh that is not torchrun's ranks, and a
+    family other than dense over `model` (ROADMAP A12a)."""
     from repro_torch.launch import train
 
+    for key in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    if world is not None:
+        monkeypatch.setenv("RANK", "0")
+        monkeypatch.setenv("WORLD_SIZE", world)
     with pytest.raises(SystemExit):
-        train.main(argv)
+        train.main([*argv, "--device", "cpu"])
     assert names in capsys.readouterr().err
 
 

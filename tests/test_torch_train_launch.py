@@ -14,9 +14,11 @@ and its fault tolerance, on the CPU, against the JAX package's.
   dtypes for one state.
 - The copied fault-tolerance classes behave as the reference's on the
   same script (a fake clock for the watchdog).
-- The CLI trains and prints its summary; more than one rank is refused,
-  and without a card the trainer and the CLI raise unless told the
-  CPU.
+- The CLI trains and prints its summary; under torchrun with 4 gloo
+  ranks at (data 2, model 2) it trains the same 6 steps as one process
+  (losses within 1e-5, its checkpoint's params within 2^-5 of each
+  leaf's largest update); and without a card the trainer and the CLI
+  raise unless told the CPU.
 - For zamba2, xlstm and whisper at smoke size (the reference's trees
   with a shared block, a tuple of blocks, an encoder; whisper's frames
   from the loader): the reference CLI's checkpoint after 2 steps,
@@ -27,6 +29,7 @@ and its fault tolerance, on the CPU, against the JAX package's.
 """
 import json
 import os
+import pathlib
 
 import jax
 import numpy as np
@@ -41,6 +44,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train
 from repro_torch.runtime import fault_tolerance as ft
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-5
 ARGS = ["--arch", "granite-8b", "--smoke", "--batch", "4", "--seq", "16",
         "--log-every", "0", "--no-preemption-guard", "--prefetch", "1"]
@@ -240,11 +244,53 @@ def test_cli_trains_and_prints_its_summary(uninterrupted, capsys):
     assert out["params_md5"] == _md5(uninterrupted)
 
 
-def test_cli_refuses_more_than_one_rank(monkeypatch, capsys):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit):
-        train.main([*ARGS, "--device", "cpu"])
-    assert "ROADMAP A12 (Distribution)" in capsys.readouterr().err
+def test_cli_refuses_more_than_one_rank(uninterrupted, tmp_path):
+    """More than one rank is no longer refused: `launch.train --arch`
+    under `torchrun --standalone --nproc-per-node 4` (gloo ranks of one
+    thread, (data 2, model 2)) trains the same 6 steps as one process:
+    rank 0 alone prints the final line and the JSON line, the losses
+    within 1e-5 of the one process's, and every param leaf of its last
+    checkpoint (the whole leaves) within 2^-5 of that leaf's largest
+    update in the one process's run (ROADMAP C20)."""
+    import subprocess
+    import sys
+
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    ckpt = tmp_path / "ck"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train", *ARGS,
+         "--steps", "6", "--device", "cpu", "--mesh-data", "2",
+         "--mesh-model", "2", "--ckpt", str(ckpt), "--save-every", "6"],
+        env=env, cwd=tmp_path, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        pytest.fail("torchrun still ran after 300 s")
+    assert proc.returncode == 0, err[-4000:]
+    lines = [ln for ln in out.splitlines() if ln.startswith(("{", "final"))]
+    assert len(lines) == 2, out
+    got = json.loads(lines[1])
+    assert lines[0] == f"final loss {got['losses'][-1]:.4f} after 6 steps"
+    assert got["last_step"] == 6
+    np.testing.assert_allclose(got["losses"], uninterrupted["losses"],
+                               rtol=0, atol=TOL)
+    before = convert.params_to_numpy(_port(0)["state"]["params"])
+    want = convert.params_to_numpy(uninterrupted["state"]["params"])
+    like = _port(0)["state"]
+    state, _ = Checkpointer(str(ckpt)).restore(like)
+    assert int(state["step"]) == 6
+    mesh = convert.params_to_numpy(state["params"])
+    for (path, m), (_, w), (_, b) in zip(
+            convert.tree_leaves(mesh), convert.tree_leaves(want),
+            convert.tree_leaves(before), strict=True):
+        update = float(np.max(np.abs(w - b)))
+        np.testing.assert_allclose(m, w, rtol=0, atol=2.0 ** -5 * update,
+                                   err_msg=str(path))
 
 
 def test_dense_trainer_needs_a_card_unless_told_cpu():
