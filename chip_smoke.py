@@ -245,6 +245,27 @@ Phases, in order; any failure exits non-zero:
               as one process, the same params_md5; (5) the per-rank
               bytes of yi-6b's whole train state at (data 4), (data 8)
               and (data 2, model 4), arithmetic
+  17. model_parallel  every family's training blocks over `model`, on an
+              NCCL group of one rank, mesh (data 1, model 1) (each block
+              runs its collectives over the one-rank `model` group): (a)
+              against the one-card block on the same bf16 inputs and
+              leaves, forward and backward, max|d| of the output and of
+              every gradient within 2e-2 of the one-card's largest
+              |value|, bit-identity, and both blocks' device ms (a
+              profiler trace of 2 calls, of 1 for the sLSTM's host-bound
+              loop): phi3.5-moe's expert-split MoE
+              FFN (16 experts of 4,096 x 6,400, top-2, group 512, 4 x
+              4,096 tokens; the dropped (token, slot) pairs equal),
+              zamba2's Mamba2 layer (80 heads) and shared block (32 heads
+              of 80) at 4 x 4,096, xlstm-125m's mLSTM and sLSTM blocks
+              at 16 x 1,024, whisper-small's encoder layer (8 x 1,500)
+              and decoder layer (8 x 416, cross-attention over 1,500
+              frames); no kernel launched; (b) configuration 20:
+              configuration 11 through make_train_step(..., mesh), the
+              MoE routing gathered and counted over the mesh's ranks,
+              against phase 14's one-card run: losses, aux and final
+              params bit for bit; both runs' step ms, tokens/s, model
+              TFLOP/s, peak memory and idle share
 Then one `{"kernels": [...]}` line, and last the device line
 `{"ok": true, "device": {...}}`. Measurements also go to
 results/chip_smoke.json.
@@ -3828,13 +3849,14 @@ def _routes_and_logits(torch, dtype, cfg, r_c, r_h, card, host, cpu_s):
     return rec
 
 
-def _moe_train(torch, dev):
+def _moe_train(torch, dev, keep=None):
     """(c) configuration 11: phi3.5-moe trained at 2 layers (1 if the peak
     passes TRAIN_PEAK_LIMIT), then one sgd step card vs CPU at 1 layer in
-    f32 activations."""
+    f32 activations; `keep` as `_train_main`'s, of the kept run."""
     main = None
     try:
-        main = _train_main(torch, dev, PHI, PHI_TRAIN_LAYERS, "moe")
+        main = _train_main(torch, dev, PHI, PHI_TRAIN_LAYERS, "moe",
+                           keep=keep)
     except torch.cuda.OutOfMemoryError as e:
         log(f"[moe] training at {PHI_TRAIN_LAYERS} layers ran out of "
             f"memory ({str(e)[:200]}); cut to 1 layer")
@@ -3845,7 +3867,7 @@ def _moe_train(torch, dev):
             "cut to 1 layer")
         main = None
     if main is None:
-        main = _train_main(torch, dev, PHI, 1, "moe")
+        main = _train_main(torch, dev, PHI, 1, "moe", keep=keep)
     require(main["metrics"][-1]["aux"] > 0, "no MoE aux loss")
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3902,15 +3924,15 @@ def _ring_check(torch, dev, cfg, batch):
     return {"max_abs_err": max(errs), "errs": errs}
 
 
-def phase_moe(torch, dev, results):
+def phase_moe(torch, dev, results, keep=None):
     """The MoE family and the sliding window: (a) phi3.5-moe serving,
-    (b) card vs CPU, (c) phi3.5-moe training, (d) mixtral serving and
-    the ring check."""
+    (b) card vs CPU, (c) phi3.5-moe training (`keep` sees its state),
+    (d) mixtral serving and the ring check."""
     torch.cuda.empty_cache()
     out = {"phi_serve": _moe_serve(torch, dev, PHI, PHI_SERVE_LAYERS,
                                    SERVE_BATCH, PROMPT, results)}
     out["card_vs_cpu"] = _moe_vs_cpu(torch, dev)
-    out["phi_train"] = _moe_train(torch, dev)
+    out["phi_train"] = _moe_train(torch, dev, keep)
     out["mixtral_serve"] = _moe_serve(torch, dev, MIXTRAL,
                                       MIXTRAL_SERVE_LAYERS, MIXTRAL_BATCH,
                                       MIXTRAL_PROMPT, results)
@@ -4751,6 +4773,291 @@ def phase_distribution(torch, dev, smi, plain):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 17. model_parallel: every family's blocks over `model`, configuration 20
+# ---------------------------------------------------------------------------
+
+MP_TOL = ATTN_TOL        # bf16 blocks: max|d| over the one-card's largest
+MP_ITERS = 2             # device ms: the mean of 2 traced calls
+MOE_TOKENS = (4, 4096)   # phi3.5-moe's expert-split FFN, group 512
+FAM_TOKENS = {ZAMBA: (4, 4096), XLSTM: (16, 1024)}
+WHISPER_ENC, WHISPER_DEC = (8, ENC_FRAMES), (8, WHISPER_PROMPT)
+
+
+def _mp_layout(torch, arch, cfg, mesh):
+    """The TP of `mesh`'s `model` dim (a group of one rank), from the
+    layout of `cfg`'s model over it."""
+    from repro_torch.core.fsdp import ParamLayout
+    from repro_torch.models import parallel as par, registry
+
+    return par.TP(ParamLayout(registry.get_spec(arch), cfg, mesh))
+
+
+def _block_params(torch, dev, defs, cfg, cls=None):
+    """A block's training leaves (f32 masters that require grad) of
+    `defs` at full width, drawn from a generator on `dev` seeded SEED."""
+    from repro_torch.models import common, transformer
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = cls(cfg, dev, True) if cls else transformer.Params(defs, cfg, dev,
+                                                            True)
+    return common.init_params(p, gen)
+
+
+def _fwd_bwd(torch, fn, inputs, leaves, g):
+    """out = fn(*inputs) and the gradients of sum(out * g) with respect to
+    the float inputs and every leaf."""
+    ins = [t.detach().clone().requires_grad_(t.is_floating_point())
+           for t in inputs]
+    out = fn(*ins)
+    wrt = [t for t in ins if t.requires_grad] + leaves
+    grads = torch.autograd.grad(out.float().mul(g).sum(), wrt)
+    return out.detach(), grads
+
+
+def _mp_compare(torch, tag, one, tp, inputs, leaves, names,
+                iters=MP_ITERS):
+    """`one` (the one-card block) and `tp` (the block over `model`) on the
+    same inputs, forward and backward: max|d| of the output and of each
+    gradient over the one-card's largest |value| (within MP_TOL), whether
+    they are bit-identical, and each one's device ms of a forward and
+    backward (profiler, `iters` calls)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=inputs[0].device).manual_seed(SEED + 1)
+    g = torch.randn(inputs[0].shape, generator=gen, device=inputs[0].device)
+    want, wg = _fwd_bwd(torch, one, inputs, leaves, g)
+    got, gg = _fwd_bwd(torch, tp, inputs, leaves, g)
+    rows, worst, same = {}, 0.0, True
+    for name, a, b in [("out", got, want)] + list(zip(names, gg, wg,
+                                                      strict=True)):
+        d = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max()) or 1.0
+        rows[name] = d
+        worst = max(worst, d / scale)
+        same = same and torch.equal(a, b)
+    ms = {}
+    for which, fn in (("one_card", one), ("model", tp)):
+        def call(fn=fn):
+            _fwd_bwd(torch, fn, inputs, leaves, g)
+        ms[which] = sum(device_times(torch, call, iters=iters).values())
+    log(f"[model_parallel] {tag}: max|d| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rows.items())
+        + f"; worst {worst:.3e} of the one-card's scale (tol {MP_TOL}); "
+        f"bit-identical {same}; forward+backward device ms "
+        f"{ms['one_card']:.3f} (one card) vs {ms['model']:.3f} (over "
+        f"`model`); {time.perf_counter() - t0:.1f} s")
+    require(worst <= MP_TOL, f"{tag}: the block over `model` disagrees "
+            f"with the one-card block ({worst} > {MP_TOL})")
+    del want, got, wg, gg
+    torch.cuda.empty_cache()
+    return {"max_abs": rows, "worst_rel": worst, "bit_identical": same,
+            "device_ms": ms, "seconds": time.perf_counter() - t0}
+
+
+def _leaves(p):
+    names, params = zip(*p.named_parameters(), strict=True)
+    return list(params), list(names)
+
+
+def _mp_moe(torch, dev, mesh):
+    """phi3.5-moe's expert-split FFN (16 experts of 4,096 x 6,400, top-2,
+    group 512) on 4 x 4,096 bf16 tokens against `moe_block`; the kept and
+    dropped pairs equal."""
+    from repro_torch.models import moe, parallel as par
+
+    _, cfg = train_config(1, PHI)
+    tp = _mp_layout(torch, PHI, cfg, mesh)
+    p = _block_params(torch, dev, moe.moe_defs(cfg), cfg)
+    leaves, names = _leaves(p)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    x = torch.randn(*MOE_TOKENS, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    require(cfg.num_experts % tp.size == 0, "the experts do not split")
+    with torch.no_grad():
+        r1 = moe.route(p, x, cfg, moe.GROUP_SIZE)
+        rt = moe.route_exchanged(p, x, cfg, moe.GROUP_SIZE,
+                                 par.moe_exchange(tp.layout, True,
+                                                  x.shape[1]))
+        drop1, dropt = int((~r1.keep).sum()), int((~rt.keep).sum())
+        same_pairs = torch.equal(r1.keep.reshape(-1), rt.keep.reshape(-1)) \
+            and torch.equal(r1.pos.reshape(-1), rt.pos.reshape(-1))
+    log(f"[model_parallel] phi3.5-moe expert-split FFN, {MOE_TOKENS[0]} x "
+        f"{MOE_TOKENS[1]} tokens: dropped (token, slot) pairs {dropt} (over "
+        f"`model`) and {drop1} (one card) of {r1.keep.numel()}; positions "
+        f"and kept pairs equal {same_pairs}")
+    require(same_pairs and drop1 == dropt, "the dropped pairs differ")
+    out = _mp_compare(
+        torch, "phi3.5-moe expert-split MoE FFN",
+        lambda x: moe.moe_block(p, x, cfg, moe.GROUP_SIZE)[0],
+        lambda x: par.tp_moe_ffn(p, x, cfg, tp, moe.GROUP_SIZE)[0],
+        [x], leaves, ["dx"] + names)
+    out["dropped"] = {"model": dropt, "one_card": drop1,
+                      "pairs": r1.keep.numel()}
+    del p, leaves, x
+    return out
+
+
+def _mp_zamba(torch, dev, mesh):
+    """One zamba2 Mamba2 layer (80 heads) and its shared block (32 heads
+    of 80) at 4 x 4,096 bf16."""
+    from repro_torch.models import mamba, parallel as par, transformer
+
+    spec, cfg = train_config(6, ZAMBA)
+    tp = _mp_layout(torch, ZAMBA, cfg, mesh)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = torch.randn(*FAM_TOKENS[ZAMBA], cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    out = {}
+    lp = _block_params(torch, dev, None, cfg, mamba.MambaLayer)
+    leaves, names = _leaves(lp)
+    out["mamba2"] = _mp_compare(
+        torch, f"zamba2 Mamba2 layer ({mamba._dims(cfg)[1]} heads)",
+        lambda x: mamba.mamba_block(lp, x, cfg),
+        lambda x: mamba.tp_mamba_block(lp, x, cfg, tp),
+        [x], leaves, ["dx"] + names)
+    del lp, leaves
+    sp = _block_params(torch, dev, mamba._shared_defs(cfg), cfg)
+    leaves, names = _leaves(sp)
+    tables = transformer.rope_tables(torch.arange(
+        x.shape[1], dtype=torch.int32, device=dev), cfg)
+    out["shared"] = _mp_compare(
+        torch, f"zamba2 shared block ({cfg.num_heads} heads of "
+        f"{cfg.resolved_head_dim})",
+        lambda x: mamba._shared_block(sp, x, cfg, tables),
+        lambda x: par.tp_decoder_layer(sp, x, cfg, tables, tp)[0],
+        [x], leaves, ["dx"] + names)
+    del sp, leaves, x
+    return out
+
+
+def _mp_xlstm(torch, dev, mesh):
+    """xlstm-125m's mLSTM and sLSTM blocks at 16 x 1,024 bf16."""
+    from repro_torch.models import xlstm
+
+    _, cfg = train_config(2, XLSTM)
+    tp = _mp_layout(torch, XLSTM, cfg, mesh)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    x = torch.randn(*FAM_TOKENS[XLSTM], cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    out = {}
+    for kind, cls, one, par_fn in (
+            ("mlstm", xlstm.MLSTMBlock, xlstm.mlstm_block,
+             xlstm.tp_mlstm_block),
+            ("slstm", xlstm.SLSTMBlock, xlstm.slstm_block,
+             xlstm.tp_slstm_block)):
+        bp = _block_params(torch, dev, None, cfg, cls)
+        leaves, names = _leaves(bp)
+        # the sLSTM's 1,024-step loop is host-bound and slow to trace:
+        # one traced call each
+        out[kind] = _mp_compare(
+            torch, f"xlstm-125m {kind} block",
+            lambda x, bp=bp, one=one: one(bp, x, cfg),
+            lambda x, bp=bp, fn=par_fn: fn(bp, x, cfg, tp),
+            [x], leaves, ["dx"] + names, 1 if kind == "slstm" else MP_ITERS)
+        del bp, leaves
+    return out
+
+
+def _mp_whisper(torch, dev, mesh):
+    """whisper-small's encoder layer (8 x 1,500) and decoder layer (8 x
+    416, cross-attention over 1,500 encoded frames), bf16."""
+    from repro_torch.models import encdec
+
+    _, cfg = train_config(1, WHISPER)
+    tp = _mp_layout(torch, WHISPER, cfg, mesh)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    xe = torch.randn(*WHISPER_ENC, cfg.d_model, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    xd = torch.randn(*WHISPER_DEC, cfg.d_model, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    out = {}
+    lp = _block_params(torch, dev, encdec._enc_defs(cfg), cfg)
+    leaves, names = _leaves(lp)
+    out["encoder"] = _mp_compare(
+        torch, "whisper-small encoder layer",
+        lambda x: encdec._encoder_layer(lp, x, cfg),
+        lambda x: encdec._tp_encoder_layer(lp, x, cfg, tp, "auto"),
+        [xe], leaves, ["dx"] + names)
+    del lp, leaves
+    lp = _block_params(torch, dev, encdec._dec_defs(cfg), cfg)
+    leaves, names = _leaves(lp)
+    out["decoder"] = _mp_compare(
+        torch, "whisper-small decoder layer (cross-attention)",
+        lambda x, e: encdec._decoder_layer(lp, x, e, cfg),
+        lambda x, e: encdec._tp_decoder_layer(lp, x, e, tp.seq_gather(e),
+                                              cfg, tp, "auto"),
+        [xd, xe], leaves, ["dx", "denc"] + names)
+    del lp, leaves, xe, xd
+    return out
+
+
+def _mp_config20(torch, dev, mesh, plain):
+    """(b) configuration 20: configuration 11 (phi3.5-moe at the depth
+    phase 14 trained) through the mesh trainer on `mesh`, the MoE routing
+    over the mesh's ranks engaged, against phase 14's one-card run in
+    this call (`plain`: its result and final params): losses and final
+    params bit for bit; both runs' step ms, tokens/s, model TFLOP/s, peak
+    memory and idle share."""
+    diff = []
+    runs = {"plain": plain["run"]}
+    runs["mesh"] = _train_main(
+        torch, dev, PHI, plain["run"]["layers"], "model_parallel mesh",
+        mesh=mesh, keep=lambda state: diff.extend(
+            _same_params(torch, state, plain["params"])))
+    same_loss = runs["mesh"]["losses"] == runs["plain"]["losses"]
+    same_aux = [m["aux"] for m in runs["mesh"]["metrics"]] == \
+        [m["aux"] for m in runs["plain"]["metrics"]]
+    log(f"[model_parallel] configuration 20 (mesh (data 1, model 1)) "
+        f"against configuration 11 (no mesh): losses bit-identical "
+        f"{same_loss}, aux {same_aux}; params leaves that differ "
+        f"{len(diff)} of {len(plain['params'])} {diff[:4]}")
+    require(same_loss and same_aux and not diff,
+            "configuration 20 is not configuration 11 bit for bit")
+    runs["mesh"]["params_bit_identical"] = not diff
+    for tag, r in runs.items():
+        log(f"[model_parallel] {tag}: step ms median "
+            f"{r['step_ms_median']:.3f}, {r['tokens_per_s']:.1f} tokens/s, "
+            f"{r['model_tflops']:.2f} model TFLOP/s, peak "
+            f"{r['max_memory_allocated'] / 2 ** 30:.3f} GiB, idle share "
+            f"{r['profile']['idle_share']:.3f}")
+    ratio = runs["mesh"]["step_ms_median"] / runs["plain"]["step_ms_median"]
+    log(f"[model_parallel] the mesh's median step is {ratio:.4f}x the one "
+        f"card's")
+    return runs
+
+
+def phase_model_parallel(torch, dev, smi, plain):
+    """17. every family's blocks over `model` and configuration 20, on an
+    NCCL group of one rank; every number from this card (`smi`)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    log(f"[model_parallel] {smi}")
+    t0 = time.perf_counter()
+    _nccl_one_rank(torch, "nccl_store_mp")
+    try:
+        mesh = make_host_mesh(1, 1)
+        ops.reset_launch_counts()
+        out = {"moe": _mp_moe(torch, dev, mesh),
+               "zamba2": _mp_zamba(torch, dev, mesh),
+               "xlstm": _mp_xlstm(torch, dev, mesh),
+               "whisper": _mp_whisper(torch, dev, mesh)}
+        counts = ops.launch_counts()
+        require(sum(counts.values()) == 0,
+                f"the blocks launched {counts}: training reaches no kernel")
+        t = time.perf_counter()
+        out["runs"] = _mp_config20(torch, dev, mesh, plain)
+        log(f"[model_parallel] the blocks took {t - t0:.1f} s, "
+            f"configuration 20 {time.perf_counter() - t:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[model_parallel] phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -4794,10 +5101,14 @@ def main():
     cfg9 = {}
     train_dense = phase_train_dense(torch, dev, keep=keep_params(cfg9))
     cfg9["run"] = train_dense["main"]
-    moe = phase_moe(torch, dev, results)
+    cfg11 = {}
+    moe = phase_moe(torch, dev, results, keep=keep_params(cfg11))
+    cfg11["run"] = moe["phi_train"]["main"]
     families = phase_families(torch, dev, results)
     distribution = phase_distribution(torch, dev, smi, cfg9)
     del cfg9
+    model_parallel = phase_model_parallel(torch, dev, smi, cfg11)
+    del cfg11
 
     kernels = [results[name] for name in ("sigmoid_grad",
                                           "segment_sum_sorted",
@@ -4813,7 +5124,8 @@ def main():
          "multirank": multirank, "p8": p8,
          "parity": parity, "sparse_serve": sparse_serve, "serve": served,
          "dense_parity": dense_parity, "train_dense": train_dense,
-         "moe": moe, "families": families, "distribution": distribution},
+         "moe": moe, "families": families, "distribution": distribution,
+         "model_parallel": model_parallel},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))

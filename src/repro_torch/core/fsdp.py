@@ -16,10 +16,13 @@ port places the stages by hand: `gather` is an all-gather whose backward
 reduce-scatters the gradient (the feature reduce), `scatter_sum` its
 transpose, `all_reduce_sum` a sum whose backward passes the gradient
 through (every rank holds the same replicated result and differentiates
-its own copy). Each takes a process group (a `DeviceMesh` dim's: NCCL on
-the cards, gloo on the CPU) and a tensor dim; a group of one rank still
-calls the collective (a copy). `dpmr_dense_linear` is the explicit FSDP
-linear of the reference, its backward re-gathering W (no full W kept).
+its own copy), `sum_shared` a sum that each rank then uses on its own
+part (its backward sums the gradients too), `exchange` an all-to-all of
+equal blocks (the MoE dispatch; its own transpose). Each takes a process
+group (a `DeviceMesh` dim's: NCCL on the cards, gloo on the CPU) and a
+tensor dim; a group of one rank still calls the collective (a copy).
+`dpmr_dense_linear` is the explicit FSDP linear of the reference, its
+backward re-gathering W (no full W kept).
 
 `ParamLayout` is the trainer's storage layout: every parameter of a
 model stored as this rank's block per `sharding.logical_to_spec`, with
@@ -41,24 +44,34 @@ def _world(group) -> int:
 def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's `x` concatenated along `dim` in group-rank order,
     contiguous (a product then sees the operand layout it sees without a
-    mesh)."""
-    xt = x.movedim(dim, 0).contiguous()
-    out = xt.new_empty((_world(group) * xt.shape[0], *xt.shape[1:]))
-    dist.all_gather_into_tensor(out, xt, group=group)
-    return out.movedim(0, dim).contiguous()
+    mesh). The blocks arrive stacked along dim 0 and are laid side by
+    side along `dim` by one concatenation (none along dim 0 or at one
+    rank), never by a transposing copy."""
+    n = _world(group)
+    xc = x.contiguous()
+    out = xc.new_empty((n * xc.shape[0], *xc.shape[1:]))
+    dist.all_gather_into_tensor(out, xc, group=group)
+    if n == 1 or dim % x.dim() == 0:
+        return out
+    return torch.cat(out.chunk(n), dim=dim)
 
 
 def reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The sum over the group's ranks of `x`, this rank's block along
-    `dim`."""
-    xt = x.movedim(dim, 0).contiguous()
+    `dim` (the blocks stacked along dim 0 for the collective by one
+    concatenation where `dim` is another and the group has more than one
+    rank)."""
     n = _world(group)
-    if xt.shape[0] % n:
+    if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"over {n} ranks")
+    if n == 1 or dim % x.dim() == 0:
+        xt = x.contiguous()
+    else:
+        xt = torch.cat(x.chunk(n, dim), dim=0)
     out = xt.new_empty((xt.shape[0] // n, *xt.shape[1:]))
     dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM, group=group)
-    return out.movedim(0, dim).contiguous()
+    return out
 
 
 class _Gather(torch.autograd.Function):
@@ -95,10 +108,75 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
+class _SumShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.group), None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
 def gather(x, group, dim: int):
     """distributeParameters: all-gather along `dim`; the backward
     reduce-scatters the gradient to the owners (sums over the ranks)."""
     return _Gather.apply(x, group, dim)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block i of x's dim 0 (equal blocks, one a rank) to rank i; the
+    result holds the blocks received, in source-rank order (no
+    gradient)."""
+    xt = x.contiguous()
+    out = torch.empty_like(xt)
+    dist.all_to_all_single(out, xt, group=group)
+    return out
+
+
+def exchange(x, group):
+    """`all_to_all`, differentiable: with equal blocks the exchange is its
+    own transpose, so the backward exchanges the gradient back."""
+    return _AllToAll.apply(x, group)
+
+
+def sum_shared(x, group):
+    """Sum over the ranks into a replicated result that each rank then
+    uses on its own part (its channels, its heads): the backward sums the
+    ranks' gradients too (the transpose of a sum whose uses differ)."""
+    return _SumShared.apply(x, group)
+
+
+def scale_grad(x, factor: float):
+    """x unchanged; its gradient times `factor`."""
+    return _ScaleGrad.apply(x, factor)
 
 
 def scatter_sum(x, group, dim: int):

@@ -28,13 +28,14 @@ one JSON line (losses, last step, straggler events, the md5 of the final
 params). Under torchrun (`--mesh-data`, `--mesh-model`, `--pods`; NCCL
 on the cards, gloo with `--device cpu`) it trains over a mesh of the
 ranks (`train.trainer.make_train_step(..., mesh)`: FSDP over `data`,
-tensor parallelism over `model`): every rank reads the same global batch,
+every family's tensor, expert or SSM-head parallelism over `model`):
+every rank reads the same global batch,
 as the reference's loader gives every process, and trains its rows;
 checkpoints hold the whole leaves (any mesh restores them), and rank 0
 prints the same lines, the md5 over the gathered params:
 
     PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
-        -m repro_torch.launch.train --arch granite-8b --smoke \
+        -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --smoke \
         --mesh-data 2 --mesh-model 2 --device cpu
 
 Sparse mode's data plane is the reference's (`--data-dir`, `--hosts`,
@@ -143,14 +144,6 @@ def dense_mesh_refusal(args, world: int) -> str | None:
     if pods * data * model != world:
         return (f"a (pods {pods}, data {data}, model {model}) mesh needs "
                 f"{pods * data * model} ranks; torchrun started {world}")
-    spec = registry.get_spec(args.arch)
-    cfg = registry.smoke_config(args.arch) if args.smoke else spec.cfg
-    try:
-        trainer.check_parallel(ParallelConfig(microbatches=args.microbatches),
-                               cfg, {"pod": pods, "data": data,
-                                     "model": model})
-    except NotImplementedError as e:
-        return str(e)
     return None
 
 

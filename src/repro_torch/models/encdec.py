@@ -29,7 +29,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import common, layers, transformer
+from repro_torch.models import common, layers, parallel, transformer
 
 ENC_FRAMES = 1500     # whisper's 30 s window of encoder frames
 
@@ -149,6 +149,69 @@ def forward(model: EncDec, batch: dict, cfg: ModelConfig,
     differentiable."""
     enc_out = encode(model, batch["frames"], cfg, parallel)
     logits = decode_train(model, batch["tokens"], enc_out, cfg, parallel)
+    return logits, torch.zeros((), dtype=torch.float32,
+                               device=logits.device)
+
+
+def _tp_encoder_layer(lp, x, cfg: ModelConfig, tp, attn_mode: str):
+    h = layers.layer_norm(x, lp.ln1, cfg.norm_eps)
+    x = x + parallel.attention_half(lp.attn, h, cfg, None, tp, attn_mode,
+                                    causal=False)
+    h = layers.layer_norm(x, lp.ln2, cfg.norm_eps)
+    return x + parallel.mlp_half(lp.mlp, h, cfg, tp)
+
+
+def _tp_decoder_layer(lp, x, enc_shard, enc_full, cfg: ModelConfig, tp,
+                      attn_mode: str):
+    h = layers.layer_norm(x, lp.ln1, cfg.norm_eps)
+    x = x + parallel.attention_half(lp.attn, h, cfg, None, tp, attn_mode)
+    h = layers.layer_norm(x, lp.lnx, cfg.norm_eps)
+    x = x + parallel.attention_half(lp.xattn, h, cfg, None, tp, attn_mode,
+                                    causal=False, kv_shard=enc_shard,
+                                    kv_full=enc_full)
+    h = layers.layer_norm(x, lp.ln2, cfg.norm_eps)
+    return x + parallel.mlp_half(lp.mlp, h, cfg, tp)
+
+
+def _shard_positions(x, cfg: ModelConfig, tp, s: int):
+    """x (B, S/m, D), the rank's S-shard of a sequence of `s`, plus its
+    rows of the sinusoidal positions."""
+    n = s // tp.size
+    pos = layers.sinusoidal_positions(s, cfg.d_model, x.dtype, x.device)
+    return x + pos[tp.rank * n:(tp.rank + 1) * n][None]
+
+
+def tp_forward(view, batch: dict, cfg: ModelConfig,
+               parallel_cfg: ParallelConfig, tp):
+    """The forward over `model` ranks (`models.parallel`): both streams
+    S-sharded; the encoder's non-causal self-attention, the decoder's
+    causal self-attention and its cross-attention head-parallel (the
+    cross K/V from the gathered encoder output) or with `attn_mode="cp"`
+    context-parallel (the cross K/V from the rank's S-shard of it,
+    gathered with them); the GELU MLPs ff-parallel; the embedding, head
+    and loss vocab-parallel. batch {frames (B, S_enc, D), tokens (B, S)}
+    -> (logits (B, S, V_pad/m) f32, aux 0)."""
+    frames, tokens = batch["frames"], batch["tokens"]
+    s_enc, s = frames.shape[1], tokens.shape[1]
+    parallel.check_tp(cfg, s, tp)
+    if s_enc % tp.size:
+        raise ValueError(f"tensor parallelism over model = {tp.size} needs "
+                         f"the {s_enc} encoder frames to divide by it")
+    mode = parallel_cfg.attn_mode
+    n = s_enc // tp.size
+    x = frames[:, tp.rank * n:(tp.rank + 1) * n].to(common.act_dtype(cfg))
+    x = _shard_positions(x, cfg, tp, s_enc)
+    layer = transformer.remat(_tp_encoder_layer, parallel_cfg.remat)
+    for lp in view.encoder:
+        x = layer(lp, x, cfg, tp, mode)
+    enc = layers.layer_norm(x, view.ln_enc, cfg.norm_eps)
+    enc_full = None if mode == "cp" else tp.seq_gather(enc)
+    x = _shard_positions(parallel.vocab_parallel_embed(
+        view.embed, tokens, cfg, tp), cfg, tp, s)
+    layer = transformer.remat(_tp_decoder_layer, parallel_cfg.remat)
+    for lp in view.layers:
+        x = layer(lp, x, enc, enc_full, cfg, tp, mode)
+    logits = parallel.tp_logits(view, x, cfg, tp, layers.layer_norm)
     return logits, torch.zeros((), dtype=torch.float32,
                                device=logits.device)
 

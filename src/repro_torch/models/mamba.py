@@ -33,7 +33,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import common, layers, ssm_common, transformer
+from repro_torch.models import (common, layers, parallel, ssm_common,
+                                 transformer)
 
 P_HEAD = 64      # SSD head dim (mamba2's default)
 CONV_K = 4       # depthwise convolution taps
@@ -134,16 +135,18 @@ def conv1d(x, kernel):
     return out.to(x.dtype)
 
 
-def _ssd_inputs(p, x, cfg: ModelConfig):
+def _ssd_inputs(p, x, cfg: ModelConfig, heads: slice | None = None):
     """x's projections: x and z in x's dtype, B and C f32 products, and
-    dt = softplus(x wdt + dt_bias) f32."""
+    dt = softplus(x wdt + dt_bias) f32; `heads`, the heads of `p`'s
+    `wdt` columns among dt_bias' (all of them by default)."""
     dt_ = x.dtype
     xin = x @ p.wx.to(dt_)
     z = x @ p.wz.to(dt_)
     bm = common.dot_f32(x, p.wB.to(dt_))
     cm = common.dot_f32(x, p.wC.to(dt_))
+    bias = p.dt_bias if heads is None else p.dt_bias[heads]
     dt = softplus(common.dot_f32(x, p.wdt.to(dt_))
-                  + p.dt_bias.to(torch.float32))
+                  + bias.to(torch.float32))
     return xin, z, bm, cm, dt
 
 
@@ -155,17 +158,21 @@ def _gated_out(p, y, z, x, cfg: ModelConfig):
     return x + y @ p.wo.to(dt_)
 
 
-def mamba_block(p, x, cfg: ModelConfig, return_state: bool = False):
-    """The SSD block of training and prefill, x (B, S, D) -> (B, S, D).
-    With `return_state`, also (conv tail (B, K - 1, d_inner), SSD state
-    (B, H, N, P) f32) for the prefill -> decode handoff."""
-    di, h, n = _dims(cfg)
-    b, s, _ = x.shape
-    hdd = layers.rms_norm(x, p.norm, cfg.norm_eps)
-    xin_raw, z, bm, cm, dt = _ssd_inputs(p, hdd, cfg)
-    xin = F.silu(conv1d(xin_raw, p.conv).to(torch.float32)).to(x.dtype)
+def _ssd(p, hdd, x_dtype, cfg: ModelConfig, head0: int = 0,
+         return_state: bool = False):
+    """The projections, convolution and SSD scan of the normed input hdd
+    (B, S, D) for the heads [head0, head0 + H') whose channels `p`'s
+    `wx`, `wz`, `conv` and `wdt` hold (all of them by default) -> (y
+    (B, S, H' * P) in x's dtype, z, the raw x projection, the SSD
+    state)."""
+    _, _, n = _dims(cfg)
+    b, s, _ = hdd.shape
+    h = p.wdt.shape[-1]
+    heads = slice(head0, head0 + h)
+    xin_raw, z, bm, cm, dt = _ssd_inputs(p, hdd, cfg, heads)
+    xin = F.silu(conv1d(xin_raw, p.conv).to(torch.float32)).to(x_dtype)
     xh = xin.reshape(b, s, h, P_HEAD)
-    log_a = -torch.exp(p.A_log.to(torch.float32)) * dt
+    log_a = -torch.exp(p.A_log[heads].to(torch.float32)) * dt
     # one B/C group broadcast over the heads; dt scales the input (v)
     k = bm[:, :, None, :].expand(b, s, h, n)
     q = cm[:, :, None, :].expand(b, s, h, n)
@@ -173,11 +180,41 @@ def mamba_block(p, x, cfg: ModelConfig, return_state: bool = False):
     res = ssm_common.chunked_linear_attention(
         q, k, v, log_a, chunk=min(128, s), return_state=return_state)
     y, state = res if return_state else (res, None)
-    y = y + xh.to(torch.float32) * p.D_skip.to(torch.float32)[:, None]
-    out = _gated_out(p, y.reshape(b, s, di).to(x.dtype), z, x, cfg)
+    y = y + xh.to(torch.float32) \
+        * p.D_skip[heads].to(torch.float32)[:, None]
+    return y.reshape(b, s, h * P_HEAD).to(x_dtype), z, xin_raw, state
+
+
+def mamba_block(p, x, cfg: ModelConfig, return_state: bool = False):
+    """The SSD block of training and prefill, x (B, S, D) -> (B, S, D).
+    With `return_state`, also (conv tail (B, K - 1, d_inner), SSD state
+    (B, H, N, P) f32) for the prefill -> decode handoff."""
+    hdd = layers.rms_norm(x, p.norm, cfg.norm_eps)
+    y, z, xin_raw, state = _ssd(p, hdd, x.dtype, cfg,
+                                return_state=return_state)
+    out = _gated_out(p, y, z, x, cfg)
     if return_state:
         return out, (conv_tail(xin_raw), state[0])
     return out
+
+
+def tp_mamba_block(p, x, cfg: ModelConfig, tp):
+    """`mamba_block` of the stream's S-shard x (B, S/m, D) over `model`
+    (`models.parallel.TP`): head-parallel where the heads and d_inner
+    split over it (`wx`, `wz`, `conv` by channels and `wdt` by heads;
+    `wB`, `wC` and the per-head vectors whole, each rank scanning its
+    heads over the whole sequence; `out_norm`'s mean of squares summed
+    over the ranks; `wo` row-parallel back to the S-shard), else whole
+    on its leaves gathered at use (the S-shard of the output kept)."""
+    di, h, _ = _dims(cfg)
+    if h % tp.size or di % tp.size:
+        return parallel.whole_block(mamba_block, p, x, tp, cfg)
+    dt_ = x.dtype
+    hdd = tp.seq_gather(layers.rms_norm(x, p.norm, cfg.norm_eps))
+    y, z, _, _ = _ssd(p, hdd, dt_, cfg, tp.rank * (h // tp.size))
+    y = parallel.sharded_rms_norm(y * F.silu(z.to(torch.float32)).to(dt_),
+                                  p.out_norm, cfg.norm_eps, tp, di)
+    return x + tp.seq_scatter(y @ p.wo.to(dt_))
 
 
 def conv_tail(x):
@@ -243,6 +280,31 @@ def forward(model: Zamba, tokens: torch.Tensor, cfg: ModelConfig,
         x = group(model, g, x, cfg, tables)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     return common.lm_head(model.unembed_table(), x, cfg), \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _tp_group(model, g, x, cfg: ModelConfig, tables, tp):
+    every = max(cfg.attn_every, 1)
+    for lp in model.layers[g * every:(g + 1) * every]:
+        x = tp_mamba_block(lp, x, cfg, tp)
+    return parallel.tp_decoder_layer(model.shared, x, cfg, tables, tp)[0]
+
+
+def tp_forward(view, tokens: torch.Tensor, cfg: ModelConfig,
+               parallel_cfg: ParallelConfig, tp):
+    """zamba2's forward over `model` ranks (`models.parallel`): the stream
+    S-sharded, the Mamba2 blocks `tp_mamba_block`, the shared block the
+    dense family's tensor-parallel layer, vocab-parallel embedding and
+    head: tokens (B, S) -> (logits (B, S, V_pad/m) f32, aux 0)."""
+    s = tokens.shape[1]
+    parallel.check_tp(cfg, s, tp)
+    group = transformer.remat(_tp_group, parallel_cfg.remat)
+    x = parallel.vocab_parallel_embed(view.embed, tokens, cfg, tp)
+    tables = transformer.rope_tables(torch.arange(
+        s, dtype=torch.int32, device=x.device), cfg)
+    for g in range(_n_inv(cfg)):
+        x = group(view, g, x, cfg, tables, tp)
+    return parallel.tp_logits(view, x, cfg, tp), \
         torch.zeros((), dtype=torch.float32, device=x.device)
 
 

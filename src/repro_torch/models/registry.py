@@ -14,7 +14,7 @@ from collections.abc import Callable
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import encdec, mamba, transformer, xlstm
+from repro_torch.models import encdec, mamba, parallel, transformer, xlstm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,12 +28,15 @@ class ArchSpec:
     prefill: Callable             # (model, batch, cfg) -> (logits, cache)
     decode_step: Callable         # (model, cache, tokens, cfg) -> (logits,
     #                               cache)
+    tp_forward: Callable          # (view, batch, cfg, parallel, tp) ->
+    #                               (vocab-sharded logits, aux) over
+    #                               `model` ranks (`models.parallel`)
 
 
 def _on_tokens(fn):
     """A family function of tokens as one of the batch."""
-    def call(model, batch, cfg, *args):
-        return fn(model, batch["tokens"], cfg, *args)
+    def call(model, batch, cfg, *args, **kwargs):
+        return fn(model, batch["tokens"], cfg, *args, **kwargs)
 
     return call
 
@@ -42,15 +45,19 @@ _FAMILY = {
     "dense": dict(model=transformer.Transformer,
                   forward=_on_tokens(transformer.forward),
                   prefill=_on_tokens(transformer.prefill),
-                  decode_step=transformer.decode_step),
+                  decode_step=transformer.decode_step,
+                  tp_forward=_on_tokens(parallel.tp_forward)),
     "hybrid": dict(model=mamba.Zamba, forward=_on_tokens(mamba.forward),
                    prefill=_on_tokens(mamba.prefill),
-                   decode_step=mamba.decode_step),
+                   decode_step=mamba.decode_step,
+                   tp_forward=_on_tokens(mamba.tp_forward)),
     "ssm": dict(model=xlstm.XLSTM, forward=_on_tokens(xlstm.forward),
                 prefill=_on_tokens(xlstm.prefill),
-                decode_step=xlstm.decode_step),
+                decode_step=xlstm.decode_step,
+                tp_forward=_on_tokens(xlstm.tp_forward)),
     "encdec": dict(model=encdec.EncDec, forward=encdec.forward,
-                   prefill=encdec.prefill, decode_step=encdec.decode_step),
+                   prefill=encdec.prefill, decode_step=encdec.decode_step,
+                   tp_forward=encdec.tp_forward),
 }
 _FAMILY["moe"] = _FAMILY["dense"]
 _FAMILY["vlm"] = _FAMILY["dense"]

@@ -155,15 +155,17 @@ def rope(q, k, tables):
 
 def decoder_layer(lp, x, cfg: ModelConfig, tables,
                   attn_mode: str = "auto",
-                  moe_group: int = moe.GROUP_SIZE):
+                  moe_group: int = moe.GROUP_SIZE, exchange=None):
     """x (B, S, D) -> ((B, S, D), aux): the pre-norm residual block of
     training. `tables` are RoPE's (sin, cos) for the sequence's positions
     (`rope_tables`, None without RoPE); aux, the MoE load-balance loss
-    over groups of `moe_group` tokens, is 0 for a dense layer."""
+    over groups of `moe_group` tokens, is 0 for a dense layer. Over a
+    mesh of DP ranks `exchange` (`moe.Exchange`) places x's tokens in the
+    microbatch, whose groups may span the ranks."""
     h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
     x = x + layers.attention_block(lp.attn, h, cfg, tables,
                                    attn_mode=attn_mode)
-    x, aux = _ffn_half(lp, x, cfg, moe_group)
+    x, aux = _ffn_half(lp, x, cfg, moe_group, exchange)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -193,10 +195,10 @@ def remat(layer_fn, mode: str):
 
 
 def forward(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
-            parallel: ParallelConfig | None = None):
+            parallel: ParallelConfig | None = None, exchange=None):
     """Training's forward: tokens (B, S) int -> (logits (B, S, V_pad) f32,
     aux 0-d f32), differentiable with respect to the model's parameters,
-    each layer under `parallel.remat`."""
+    each layer under `parallel.remat`; `exchange` as `decoder_layer`'s."""
     parallel = parallel or ParallelConfig()
     layer = remat(decoder_layer, parallel.remat)
     x = common.embed_tokens(model.embed, tokens, cfg)
@@ -205,18 +207,20 @@ def forward(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
         x, a = layer(lp, x, cfg, tables, parallel.attn_mode,
-                     parallel.moe_group)
+                     parallel.moe_group, exchange)
         aux = aux + a
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     return common.lm_head(model.unembed_table(), x, cfg), aux
 
 
-def _ffn_half(lp, x, cfg: ModelConfig, moe_group: int = moe.GROUP_SIZE):
+def _ffn_half(lp, x, cfg: ModelConfig, moe_group: int = moe.GROUP_SIZE,
+              exchange=None):
     """x + the MLP (or MoE) of its RMS norm, and the MoE aux loss (None
     for a dense layer), as the reference's `_ffn`."""
     h = layers.rms_norm(x, lp.ln2, cfg.norm_eps)
     if cfg.num_experts:
-        ff, aux = moe.moe_block(lp.mlp, h, cfg, group_size=moe_group)
+        ff, aux = moe.moe_block(lp.mlp, h, cfg, group_size=moe_group,
+                                exchange=exchange)
         return x + ff, aux
     return x + layers.mlp_block(lp.mlp, h, cfg), None
 

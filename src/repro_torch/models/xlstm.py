@@ -42,7 +42,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import common, layers, ssm_common, transformer
+from repro_torch.core import fsdp
+from repro_torch.models import (common, layers, parallel, ssm_common,
+                                 transformer)
 from repro_torch.models.mamba import CONV_K, conv1d, conv_tail
 
 EXP_CLAMP = 10.0
@@ -174,6 +176,46 @@ def mlstm_block(p, x, cfg: ModelConfig, return_state: bool = False):
     return out
 
 
+def tp_mlstm_block(p, x, cfg: ModelConfig, tp):
+    """`mlstm_block` of the stream's S-shard x (B, S/m, D) over `model`
+    (`models.parallel.TP`), where the heads split over it: `wu`, `wz` and
+    `conv` by channels (the rank's heads'), `wq`, `wk`, `wv`, `wi` and
+    `wf` by their input rows, so each product is a partial sum over the
+    ranks, reduce-scattered to the rank's heads; each rank scans its
+    heads, `out_norm`'s mean of squares is summed over the ranks and `wo`
+    is row-parallel back to the S-shard. Else whole on its leaves
+    gathered at use."""
+    di, h, dh = _mdims(cfg)
+    m = tp.size
+    if h % m:
+        return parallel.whole_block(mlstm_block, p, x, tp, cfg)
+    b, s = x.shape[0], x.shape[1] * m
+    dt = x.dtype
+    hn = tp.seq_gather(layers.rms_norm(x, p.norm, cfg.norm_eps))
+    u, z = hn @ p.wu.to(dt), hn @ p.wz.to(dt)
+    cu = F.silu(conv1d(u, p.conv).to(torch.float32)).to(dt)
+
+    def heads(part):          # partial (B, S, n) -> summed, own heads
+        return fsdp.scatter_sum(part, tp.group, 2)
+
+    shp = (b, s, h // m, dh)
+    q = heads(cu @ p.wq.to(dt)).reshape(shp)
+    k = heads(cu @ p.wk.to(dt)).reshape(shp)
+    v = heads(u @ p.wv.to(dt)).reshape(shp)
+    own = slice(tp.rank * (h // m), (tp.rank + 1) * (h // m))
+    i_pre = heads(common.dot_f32(cu, p.wi.to(dt)))
+    f_pre = heads(common.dot_f32(cu, p.wf.to(dt))) \
+        + p.f_bias[own].to(torch.float32)
+    igate = torch.exp(torch.clamp(i_pre, max=EXP_CLAMP))
+    k = k * (igate[..., None] / math.sqrt(dh)).to(k.dtype)
+    y = ssm_common.chunked_linear_attention(
+        q, k, v, F.logsigmoid(f_pre), chunk=min(128, s), normalize=True)
+    y = parallel.sharded_rms_norm(y.reshape(b, s, di // m).to(dt),
+                                  p.out_norm, cfg.norm_eps, tp, di)
+    y = y * F.silu(z.to(torch.float32)).to(dt)
+    return x + tp.seq_scatter(y @ p.wo.to(dt))
+
+
 def mlstm_decode_step(p, x, cfg: ModelConfig, conv_buf, S, n):
     """x (B, 1, D); conv_buf (B, K - 1, d_inner); S (B, H, dh, dh); n (B,
     H, dh). Returns (x_out, conv_buf, S, n). The projections, the gates'
@@ -242,14 +284,18 @@ def _recurrent_gates(p, wx_t, h_prev):
     return wx_t + wr + p.b_gates.to(torch.float32).transpose(0, 1)[None]
 
 
-def _slstm_mlp(p, hs, x, cfg: ModelConfig):
-    """x + the GELU-gated MLP of rms_norm(hs) (hs (B, S, D) f32)."""
-    dt = x.dtype
+def _slstm_ffn(p, hs, dt, cfg: ModelConfig):
+    """The GELU-gated MLP of rms_norm(hs) (hs (B, S, D) f32) in `dt`."""
     y = layers.rms_norm(hs.to(dt), p.out_norm, cfg.norm_eps)
     u1 = common.dot_f32(y, p.w_up1.to(dt))
     u2 = common.dot_f32(y, p.w_up2.to(dt))
     g = (F.gelu(u1, approximate="tanh") * u2).to(dt)
-    return x + g @ p.w_down.to(dt)
+    return g @ p.w_down.to(dt)
+
+
+def _slstm_mlp(p, hs, x, cfg: ModelConfig):
+    """x + the GELU-gated MLP of rms_norm(hs) (hs (B, S, D) f32)."""
+    return x + _slstm_ffn(p, hs, x.dtype, cfg)
 
 
 def slstm_block(p, x, cfg: ModelConfig, return_state: bool = False):
@@ -261,6 +307,16 @@ def slstm_block(p, x, cfg: ModelConfig, return_state: bool = False):
     hn = layers.rms_norm(x, p.norm, cfg.norm_eps)
     z0 = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
     state = (z0, z0, torch.full_like(z0, -math.inf), z0)
+    hs, state = _slstm_scan(p, hn, state)
+    out = _slstm_mlp(p, hs.reshape(b, s, d), x, cfg)
+    if return_state:
+        return out, state
+    return out
+
+
+def _slstm_scan(p, hn, state):
+    """The recurrence over the steps of hn (B, S, D) for the heads of
+    `p`'s gate leaves -> (h (B, S, H', dh) f32, the final state)."""
     hs = []
     # the steps' input gates by one unbind (its backward stacks their
     # gradients once; an index a step would add a zero-filled gradient of
@@ -268,10 +324,30 @@ def slstm_block(p, x, cfg: ModelConfig, return_state: bool = False):
     for wx_t in _input_gates(p, hn).unbind(0):
         state = _slstm_cell(_recurrent_gates(p, wx_t, state[3]), state)
         hs.append(state[3])
-    out = _slstm_mlp(p, torch.stack(hs, dim=1).reshape(b, s, d), x, cfg)
-    if return_state:
-        return out, state
-    return out
+    return torch.stack(hs, dim=1), state
+
+
+def tp_slstm_block(p, x, cfg: ModelConfig, tp):
+    """`slstm_block` of the stream's S-shard x (B, S/m, D) over `model`,
+    where the heads split over it: `w_gates`, `r_gates` and `b_gates` by
+    heads, so each rank runs its heads' recurrence over the whole
+    sequence; their outputs are gathered over `model` for `out_norm`
+    (over all of D) and the MLP, ff-parallel (`w_up1`/`w_up2` by
+    columns, `w_down` by rows) where ff splits, else whole with the
+    output cut. Else the block is whole on its leaves gathered at use."""
+    b, s_loc, d = x.shape
+    h = cfg.num_heads
+    if h % tp.size:
+        return parallel.whole_block(slstm_block, p, x, tp, cfg)
+    hn = tp.seq_gather(layers.rms_norm(x, p.norm, cfg.norm_eps))
+    z0 = torch.zeros((b, h // tp.size, d // h), dtype=torch.float32,
+                     device=x.device)
+    hs, _ = _slstm_scan(p, hn, (z0, z0, torch.full_like(z0, -math.inf),
+                                z0))
+    hs = fsdp.gather(hs.reshape(b, hn.shape[1], -1), tp.group, 2)
+    fup = (4 * d) // 3
+    return x + tp.back_to_stream(_slstm_ffn(p, hs, x.dtype, cfg),
+                                 fup % tp.size == 0)
 
 
 def slstm_decode_step(p, x, cfg: ModelConfig, state):
@@ -305,6 +381,27 @@ def forward(model: XLSTM, tokens: torch.Tensor, cfg: ModelConfig,
         x = block(bp, x, cfg)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     return common.lm_head(model.unembed_table(), x, cfg), \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _tp_block(bp, x, cfg: ModelConfig, tp):
+    if bp.kind == SLSTMBlock.kind:
+        return tp_slstm_block(bp, x, cfg, tp)
+    return tp_mlstm_block(bp, x, cfg, tp)
+
+
+def tp_forward(view, tokens: torch.Tensor, cfg: ModelConfig,
+               parallel_cfg: ParallelConfig, tp):
+    """The forward over `model` ranks (`models.parallel`): the stream
+    S-sharded, each block head-parallel (`tp_mlstm_block`,
+    `tp_slstm_block`), the tied embedding and head vocab-parallel: tokens
+    (B, S) -> (logits (B, S, V_pad/m) f32, aux 0)."""
+    parallel.check_tp(cfg, tokens.shape[1], tp)
+    block = transformer.remat(_tp_block, parallel_cfg.remat)
+    x = parallel.vocab_parallel_embed(view.embed, tokens, cfg, tp)
+    for bp in view.blocks:
+        x = block(bp, x, cfg, tp)
+    return parallel.tp_logits(view, x, cfg, tp), \
         torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -29,10 +29,15 @@ gradients are all-reduced and averaged, or with `compress_pod_grads`
 reduced by `optim.compression.compress_tree_psum` with the error
 feedback `err` kept on each rank's blocks. Clipping sums every block's
 squares once (a replicated block counts on one rank). With `model` > 1
-the dense family runs tensor- (or, `attn_mode="cp"`, context-) parallel
-(`models.parallel.tp_forward`); the other families train on any
-`(pod, data)` mesh and raise with `model` > 1. `sparse_embed` is read
-by neither package's trainer.
+every family runs its forward over `model` (`spec.tp_forward`: the
+dense and MoE families' `models.parallel.tp_forward`, tensor- or with
+`attn_mode="cp"` context-parallel attention, the MoE FFN expert- or
+ff-parallel; zamba2's, xlstm's and whisper's in their modules), the
+loss vocab-parallel. The MoE routing counts its groups over the whole
+microbatch wherever its tokens lie (`moe.Exchange`: a group may span DP
+ranks and the S-shards of `model` ranks), and the aux is the
+reference's, averaged over every group. `sparse_embed` is read by
+neither package's trainer.
 """
 from __future__ import annotations
 
@@ -53,21 +58,6 @@ from repro_torch.models import common, parallel as par
 from repro_torch.optim import compression, optimizers, schedules
 
 AUX_COEF = 0.01      # MoE load-balance loss weight
-TP_FAMILIES = ("dense", "vlm")
-NEXT_LAYOUTS = ("ROADMAP A12a (expert- and tensor-parallel layouts of "
-                "the MoE, hybrid, SSM and encoder-decoder families)")
-
-
-def check_parallel(parallel: ParallelConfig, cfg: ModelConfig | None = None,
-                   mesh=None) -> None:
-    """Raise for what the trainer does not do yet: a `model` dim of more
-    than one rank for a family other than dense and vlm (ROADMAP A12a)."""
-    m = shd.mesh_shape(mesh).get("model", 1) if mesh is not None else 1
-    if cfg is not None and m > 1 and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) over model = {m} ranks: the "
-            f"layouts over `model` are the dense family's; the rest is "
-            f"{NEXT_LAYOUTS}")
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +150,6 @@ def init_state(spec, cfg: ModelConfig, train_cfg: TrainConfig,
     drawn from `generator` (`common.init_params`), the moments zero.
     With a `mesh`, this rank's blocks of the same weights: every rank
     draws each whole leaf in turn and keeps its block."""
-    check_parallel(parallel, cfg, mesh)
     if mesh is None:
         model = common.init_params(spec.model(cfg, device=device,
                                               train=True), generator)
@@ -177,7 +166,6 @@ def init_from_params(spec, cfg: ModelConfig, train_cfg: TrainConfig,
     {name: tensor} (`convert.params_from_numpy(...).named_parameters()`
     carries the reference's), or with a `mesh` this rank's blocks of
     them."""
-    check_parallel(parallel, cfg, mesh)
     if mesh is None:
         model = spec.model(cfg, device=device, train=True)
         with torch.no_grad():
@@ -214,8 +202,8 @@ def full_params(model) -> dict:
 
 
 def make_loss_fn(spec, cfg: ModelConfig, parallel: ParallelConfig):
-    def loss_fn(model, batch):
-        logits, aux = spec.forward(model, batch, cfg, parallel)
+    def loss_fn(model, batch, **kwargs):
+        logits, aux = spec.forward(model, batch, cfg, parallel, **kwargs)
         nll = common.cross_entropy(logits, batch["labels"])
         loss = nll + AUX_COEF * aux
         return loss, {"nll": nll, "aux": aux}
@@ -279,7 +267,6 @@ def make_train_step(spec, cfg: ModelConfig, train_cfg: TrainConfig,
     """Returns train_step(state, batch) -> (state, metrics); `batch` holds
     `tokens` and `labels` (B, S) int tensors (and an encoder-decoder's
     `frames`) on the state's device: the global batch."""
-    check_parallel(parallel, cfg, mesh)
     if mesh is not None:
         return _make_mesh_step(spec, cfg, train_cfg, parallel, mesh)
     loss_fn = make_loss_fn(spec, cfg, parallel)
@@ -309,20 +296,6 @@ def make_train_step(spec, cfg: ModelConfig, train_cfg: TrainConfig,
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
-
-
-def _check_moe_groups(rank_shape, dp: int, moe_group: int) -> None:
-    """The reference routes a microbatch's tokens in groups of
-    g = min(moe_group, its tokens), consecutive in row order; a rank
-    routes its own rows, so every group must lie within one rank's."""
-    rows, seq = rank_shape[0], rank_shape[1]
-    g = min(moe_group, rows * seq * dp)
-    if (rows * seq) % g:
-        raise NotImplementedError(
-            f"MoE groups of {g} tokens span the {dp} DP ranks' "
-            f"{rows * seq} tokens each: routing across ranks is "
-            f"{NEXT_LAYOUTS}; pass a moe_group that divides a rank's "
-            "tokens")
 
 
 def _compress_leaf(layout, name, g, err):
@@ -385,11 +358,14 @@ def _make_mesh_step(spec, cfg, train_cfg, parallel, mesh) -> Callable:
     def loss_fn(model, batch):
         view = par.ShardedView(model, model.layout)
         if not tensor:
-            return family_loss(view, batch)
+            kw = {"exchange": par.moe_exchange(
+                model.layout, False, batch["tokens"].shape[1])} \
+                if cfg.num_experts else {}
+            return family_loss(view, batch, **kw)
         tp = par.TP(model.layout)
-        logits = par.tp_forward(view, batch["tokens"], cfg, parallel, tp)
+        logits, aux = spec.tp_forward(view, batch, cfg, parallel, tp)
         nll = par.vocab_parallel_cross_entropy(logits, batch["labels"], tp)
-        return nll, {"nll": nll, "aux": torch.zeros_like(nll)}
+        return nll + AUX_COEF * aux, {"nll": nll, "aux": aux}
 
     def dp_mean(x, layout):
         """The mean over the DP ranks of a metric (a new tensor)."""
@@ -436,9 +412,6 @@ def _make_mesh_step(spec, cfg, train_cfg, parallel, mesh) -> Callable:
         names, params = zip(*model.named_parameters(), strict=True)
         dp_rank = layout.coord.get("pod", 0) * data + layout.coord["data"]
         micro = _rank_micro(batch, k, pods * data, dp_rank)
-        if cfg.num_experts and pods * data > 1:
-            _check_moe_groups(micro[0]["tokens"].shape, pods * data,
-                              parallel.moe_group)
         grads, loss, m = _accumulate(loss_fn, model, names, params, micro,
                                      adt)
         grads = sync(grads, state, layout)

@@ -603,14 +603,15 @@ def test_launch_train_ranks_are_hosts_as_in_the_reference(launched):
     (["--arch", "yi-6b", "--smoke", "--mesh-data", "3"], "needs 3 ranks",
      "4"),
     (["--arch", "zamba2-2.7b", "--smoke", "--mesh-model", "2"],
-     "ROADMAP A12a", "4")])
+     "needs 2 ranks", "3")])
 def test_launch_train_refuses_what_is_not_ported(argv, names, world,
                                                  monkeypatch, capsys):
     """The dense mode needs an --arch (every family of the reference is
     ported); host flags that name no host, and a save interval below 1,
     are refused before any group starts. So are, in the dense mode, mesh
-    flags without torchrun, a mesh that is not torchrun's ranks, and a
-    family other than dense over `model` (ROADMAP A12a)."""
+    flags without torchrun and a mesh that is not torchrun's ranks (of
+    any family: every family trains over `model`,
+    tests/test_torch_mesh_launch.py)."""
     from repro_torch.launch import train
 
     for key in ("RANK", "WORLD_SIZE"):

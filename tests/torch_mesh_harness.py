@@ -150,6 +150,39 @@ def init_tree(arch: str, seed: int = 0, overrides=None) -> dict:
     return jax.tree_util.tree_map_with_path(leaf, params)
 
 
+def numpy_tree(arch: str, seed: int = 0, overrides=None) -> dict:
+    """`init_tree`'s distribution drawn with numpy on the reference's
+    shapes (no JAX computation): matrices N(0, 0.02^2), 1-D leaves ones,
+    the norm scales, D_skip, A_log and dt_bias as `init_tree` redraws
+    them."""
+    import dataclasses
+
+    import jax
+
+    from repro.models import registry
+    from repro.sharding import Annotated
+
+    cfg = dataclasses.replace(registry.smoke_config(arch),
+                              **(overrides or {}))
+    defs = registry.get_spec(arch).defs(cfg)
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, ann):
+        name = _keys(path)[-1]
+        if name in NORMS or name == "D_skip":
+            x = 1.0 + 0.1 * rng.normal(size=ann.shape)
+        elif name in ("A_log", "dt_bias"):
+            x = 0.5 * rng.normal(size=ann.shape)
+        elif len(ann.shape) == 1:
+            x = np.ones(ann.shape)
+        else:
+            x = 0.02 * rng.normal(size=ann.shape)
+        return x.astype(ann.dtype)
+
+    return jax.tree_util.tree_map_with_path(
+        leaf, defs, is_leaf=lambda x: isinstance(x, Annotated))
+
+
 def flat(tree, prefix: str = "") -> dict:
     """A tree of dicts (and tuples) as {"a/b/c": array}."""
     out = {}
@@ -163,8 +196,19 @@ def flat(tree, prefix: str = "") -> dict:
     return out
 
 
+def _tuples(node):
+    """A tree of dicts whose nodes keyed 0 .. n - 1 become tuples (an
+    xlstm's `blocks`), as `flat` found them."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _tuples(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return tuple(node[str(i)] for i in range(len(node)))
+    return node
+
+
 def unflat(arrays, prefix: str) -> dict:
-    """{"prefix/a/b": array} back into a tree of dicts."""
+    """{"prefix/a/b": array} back into a tree of dicts (and tuples)."""
     tree: dict = {}
     for key in arrays.files if hasattr(arrays, "files") else arrays:
         if not key.startswith(prefix):
@@ -174,7 +218,7 @@ def unflat(arrays, prefix: str) -> dict:
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = np.asarray(arrays[key])
-    return tree
+    return _tuples(tree)
 
 
 def lm_batches(arch: str, n: int, seq: int = 16, batch: int = 8) -> list:
@@ -189,12 +233,13 @@ def lm_batches(arch: str, n: int, seq: int = 16, batch: int = 8) -> list:
     return [ds.batch(i) for i in range(n)]
 
 
-def write_inputs(path, models: dict) -> None:
+def write_inputs(path, models: dict, init=init_tree) -> None:
     """{model name: (arch, n batches, config overrides)} -> one npz of each
-    model's initial params and batches, under its name."""
+    model's initial params (`init`: `init_tree`, or `numpy_tree`) and
+    batches, under its name."""
     arrays = {}
     for name, (arch, n, overrides) in models.items():
-        arrays.update(flat(init_tree(arch, overrides=overrides),
+        arrays.update(flat(init(arch, overrides=overrides),
                            f"{name}/params/"))
         for i, b in enumerate(lm_batches(arch, n)):
             arrays.update(flat(b, f"{name}/batch{i}/"))
@@ -219,10 +264,19 @@ from repro import sharding as shd
 from repro.models import registry
 from repro.train import trainer
 from repro.configs.base import TrainConfig, ParallelConfig
+from repro.optim import compression, optimizers
 
 runs = json.load(open(sys.argv[1]))
 data = np.load(sys.argv[2])
 out = {}
+
+def tuples(node):
+    if not isinstance(node, dict):
+        return node
+    node = {k: tuples(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return tuple(node[str(i)] for i in range(len(node)))
+    return node
 
 def unflat(prefix):
     tree = {}
@@ -233,7 +287,7 @@ def unflat(prefix):
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = jnp.asarray(data[key])
-    return tree
+    return tuples(tree)
 
 def keys(path):
     return "/".join(str(getattr(k, "key", getattr(k, "idx", None)))
@@ -248,10 +302,16 @@ for r in runs:
     pods, d, m = r["mesh"]
     mesh = compat.make_mesh((pods, d, m), ("pod", "data", "model")) \
         if pods else compat.make_mesh((d, m), ("data", "model"))
-    losses, norms, lrs = [], [], []
+    losses, norms, lrs, auxes = [], [], [], []
     with compat.set_mesh(mesh):
-        state = trainer.init_state(spec, cfg, tc, pc, jax.random.PRNGKey(0))
-        state = dict(state, params=unflat(key + "/params/"))
+        # `trainer.init_state` of the given params (its draw skipped)
+        params = unflat(key + "/params/")
+        state = {"params": params,
+                 "opt": optimizers.get_optimizer(tc.optimizer).init(
+                     params, cfg.opt_dtype),
+                 "step": jnp.zeros((), jnp.int32)}
+        if pc.compress_pod_grads:
+            state["err"] = compression.init_error_state(params)
         # the state in the reference's layout, kept there across steps
         state_sh = trainer.shardings_for_state(
             trainer.state_defs(spec, cfg, tc, pc), mesh)
@@ -267,9 +327,11 @@ for r in runs:
             losses.append(float(met["loss"]))
             norms.append(float(met["grad_norm"]))
             lrs.append(float(met["lr"]))
+            auxes.append(float(met["aux"]))
     out[r["name"] + "/losses"] = np.asarray(losses)
     out[r["name"] + "/grad_norms"] = np.asarray(norms)
     out[r["name"] + "/lrs"] = np.asarray(lrs)
+    out[r["name"] + "/aux"] = np.asarray(auxes)
     if r.get("params"):
         for path, leaf in jax.tree_util.tree_flatten_with_path(
                 state["params"])[0]:
@@ -311,7 +373,7 @@ def port_train(runs: list, inputs, meshes: dict, device: str = "cpu"
         state = trainer.init_from_params(spec, cfg, tc, pc, full, device,
                                          mesh)
         step = trainer.make_train_step(spec, cfg, tc, pc, mesh)
-        losses, norms, lrs = [], [], []
+        losses, norms, lrs, auxes = [], [], [], []
         for i in range(r["steps"]):
             batch = {k: torch.from_numpy(v) for k, v in
                      unflat(data, f"{key}/batch{i}/").items()}
@@ -319,9 +381,11 @@ def port_train(runs: list, inputs, meshes: dict, device: str = "cpu"
             losses.append(float(met["loss"]))
             norms.append(float(met["grad_norm"]))
             lrs.append(float(met["lr"]))
+            auxes.append(float(met["aux"]))
         out[r["name"] + "/losses"] = np.asarray(losses)
         out[r["name"] + "/grad_norms"] = np.asarray(norms)
         out[r["name"] + "/lrs"] = np.asarray(lrs)
+        out[r["name"] + "/aux"] = np.asarray(auxes)
         if r.get("params"):
             model = state["params"]
             for path, leaf in convert.tree_leaves(convert.params_to_numpy(
