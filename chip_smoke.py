@@ -266,6 +266,35 @@ Phases, in order; any failure exits non-zero:
               against phase 14's one-card run: losses, aux and final
               params bit for bit; both runs' step ms, tokens/s, model
               TFLOP/s, peak memory and idle share
+  18. serve_mesh  dense serving over a mesh, run right after phase 11 on
+              its model, on an NCCL group of one rank, mesh (data 1,
+              model 1) (every collective of the path over the one-rank
+              groups): (c) flash_attention at one rank's share of yi-6b's
+              heads at (model 4), q (8, 4096, 8, 128) against k, v (8,
+              4096, 1, 128) from layer 0 of phase 11's prefill, causal,
+              held to its plain version a batch element at a time, 3
+              calls bit-identical, timed beside its bound, the plain
+              version and SDPA; (a) configuration 3 through
+              greedy_decode(..., mesh) on phase 11's weights (copied into
+              the mesh's blocks, then the one-card model freed) and
+              prompts: the 32 tokens equal phase 11's, flash_attention 32
+              launches, all in the prefill, the prefill's and first decode
+              step's logits within ATTN_TOL of the one-card path's (and
+              whether bit-identical), prefill ms, decode ms a step
+              (median of 16), peak memory and a profiled decode window's
+              idle share beside phase 11's; (b) phi3.5-moe (8 x 4096),
+              mixtral (2 x 8192), zamba2 (8 x 4096, one shared block: the
+              kv_heads cache), xlstm-125m (8 x 4096, f32, TF32 off) and
+              whisper-small (8 x 1500 frames, prompt 416) at full width
+              cut to 2 layers, the mesh path against the one-card path on
+              the same weights, 8 greedy steps: tokens equal, each call's
+              logits within ATTN_TOL (xlstm 1e-4) of the row's scale, the
+              same launches and dropped pairs, both paths' prefill ms and
+              decode ms a step; (d) launch.serve --arch mixtral-8x22b
+              --smoke (the MoE routing and the window's ring; a smoke
+              head dim of 16 is no kernel's, and the window takes none)
+              under torchrun --nproc-per-node 1 and as one process, the
+              same tokens md5
 Then one `{"kernels": [...]}` line, and last the device line
 `{"ok": true, "device": {...}}`. Measurements also go to
 results/chip_smoke.json.
@@ -285,9 +314,12 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
-BF16_TC_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+# the H100 SXM data sheet's rates, kept in the port's configs
+from repro_torch.configs.base import (  # noqa: E402
+    H100_BF16_TC_FLOPS as BF16_TC_FLOPS,
+    H100_F32_FLOPS as F32_FLOPS,
+    H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S,
+)
 
 SMEM_PER_BLOCK = 232448        # H100 shared memory a block can use
 LOG2_F, K, BATCH, STEPS = 27, 64, 4096, 20
@@ -3045,7 +3077,8 @@ def serve_run(torch, dev, spec, cfg, model, batch, prompt, phase="serve",
             "decode_ms_median": step_med, "decode_ms": step_ms,
             "max_memory_allocated": peak, "launches": counts,
             "decode_profile": dec_prof, "prefill_profile": pre_prof,
-            "first_tokens": toks[:2].cpu().tolist()}
+            "first_tokens": toks[:2].cpu().tolist(),
+            "tokens": toks.cpu().tolist()}
 
 
 def phase_serve(torch, dev, spec, cfg, model, results):
@@ -5058,6 +5091,360 @@ def phase_model_parallel(torch, dev, smi, plain):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 18. serve_mesh: dense serving over a mesh of ranks (every family)
+# ---------------------------------------------------------------------------
+
+SM_STEPS = 8             # (b): decode steps of each family's comparison
+SM_FAMILIES = (          # (b): arch, batch, prompt, config changes
+    (PHI, 8, 4096, {"num_layers": 2}),
+    (MIXTRAL, MIXTRAL_BATCH, MIXTRAL_PROMPT, {"num_layers": 2}),
+    (ZAMBA, 8, 4096, {"num_layers": 2, "attn_every": 2}),
+    (XLSTM, 8, 4096, {"num_layers": 2, "dtype": "float32"}),
+    (WHISPER, 8, WHISPER_PROMPT, {"num_layers": 2, "encoder_layers": 2}),
+)
+SM_RANK_HEADS = 4        # (c): yi-6b's heads and KV heads over model 4
+
+
+def _rel_gap(torch, got, want, vocab):
+    """max|got - want| over the last position's real vocab, and that over
+    the row's largest |want|; whether the two are bit-identical."""
+    got = got.float().cpu()[:, -1, :vocab]
+    want = want.float().cpu()[:, -1, :vocab]
+    d = (got - want).abs()
+    scale = want.abs().amax(dim=-1)
+    return float(d.max()), float((d.amax(-1) / scale).max()), \
+        bool(torch.equal(got, want))
+
+
+def _sm_model(torch, spec, cfg, mesh, dev, whole):
+    """The serving model's blocks over `mesh` (a group of one rank: the
+    whole leaves, copied), cut from `whole` {name: tensor}."""
+    from repro_torch.train import trainer
+
+    return trainer.sharded_model(spec, cfg, mesh, dev,
+                                 lambda name, shape: whole[name],
+                                 train=False)
+
+
+def _sm_config3(torch, dev, mesh, spec, cfg, held, served):
+    """(a) configuration 3 (yi-6b at full width and depth, 8 x 4096, 32
+    steps) through the mesh path on phase 11's model and prompts: the
+    tokens phase 11's, the prefill's and first decode step's logits
+    against the one-card path's, flash_attention 32 launches all in the
+    prefill; prefill ms, decode ms a step, peak memory and a profiled
+    decode window's idle share beside phase 11's."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import parallel
+    from repro_torch.train import serve
+
+    model = held["model"]
+    host = {"tokens": prompts(cfg, SERVE_BATCH, PROMPT)}
+    placed = {"tokens": torch.from_numpy(host["tokens"]).to(dev)}
+    with torch.inference_mode():
+        lp, cache = spec.prefill(model, placed, cfg)
+        tok0 = torch.argmax(lp[:, -1], dim=-1)[:, None].to(torch.int32)
+        ld, _ = spec.decode_step(model, cache, tok0, cfg)
+        want = (lp.cpu(), ld.cpu())
+        del cache, lp, ld
+    t = time.perf_counter()
+    smodel = _sm_model(torch, spec, cfg, mesh, dev,
+                       dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t
+    held.clear()                 # the one-card model, now unused
+    del model
+    torch.cuda.empty_cache()
+    serve.greedy_decode(spec, cfg, smodel, host, 2, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    toks = serve.greedy_decode(spec, cfg, smodel, host, DECODE_STEPS,
+                               device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    same = toks.cpu().tolist() == served["tokens"]
+    log(f"[serve_mesh] (a) configuration 3 through the mesh path (data 1, "
+        f"model 1): greedy_decode {SERVE_BATCH} x {PROMPT}, {DECODE_STEPS} "
+        f"steps in {wall:.4f} s; launches {counts}; tokens equal phase "
+        f"11's {same}; max_memory_allocated {peak / 2 ** 30:.3f} GiB "
+        f"(phase 11: {served['max_memory_allocated'] / 2 ** 30:.3f}); the "
+        f"blocks copied in {copy_s:.2f} s")
+    require(counts["flash_attention"] == cfg.num_layers
+            and sum(counts.values()) == cfg.num_layers,
+            f"the mesh path launched {counts}: expected flash_attention "
+            f"{cfg.num_layers} times, all in the prefill")
+    require(same, "the mesh path's tokens are not phase 11's")
+
+    view = parallel.ShardedView(smodel, smodel.layout)
+    sm = parallel.ServeMesh(smodel.layout, SERVE_BATCH)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = spec.mesh_prefill(view, placed, cfg, sm)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    pre_counts = ops.launch_counts()
+    require(pre_counts["flash_attention"] == cfg.num_layers,
+            f"the mesh prefill launched {pre_counts}")
+    tok = parallel.next_token(logits, cfg, sm.tp)
+    gaps = {"prefill": _rel_gap(torch, logits, want[0], cfg.vocab_size)}
+    ops.reset_launch_counts()
+    step_ms = []
+    for i in range(16):
+        t = time.perf_counter()
+        logits, cache = spec.mesh_decode_step(view, cache, tok, cfg, sm)
+        tok = parallel.next_token(logits, cfg, sm.tp)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if i == 0:
+            gaps["decode step 1"] = _rel_gap(torch, logits, want[1],
+                                             cfg.vocab_size)
+    dec_counts = ops.launch_counts()
+    require(sum(dec_counts.values()) == 0,
+            f"the mesh decode steps launched {dec_counts}")
+    for tag, (d, rel, bits) in gaps.items():
+        log(f"[serve_mesh] (a) {tag} logits, mesh vs one card: max|d| "
+            f"{d:.4e}, {rel:.4e} of the row's max|logit| (tol {ATTN_TOL}); "
+            f"bit-identical {bits}")
+        require(rel <= ATTN_TOL, f"(a) the mesh path's {tag} logits "
+                f"disagree with the one-card path's")
+    step_med = statistics.median(step_ms)
+
+    def step():
+        spec.mesh_decode_step(view, cache, tok, cfg, sm)
+
+    prof = profile_window(torch, step, 8, "serve_mesh decode step")
+    out = {"tokens_equal": same, "launches": counts,
+           "prefill_launches": pre_counts, "greedy_s": wall,
+           "prefill_ms": prefill_ms, "decode_ms_median": step_med,
+           "decode_ms": step_ms, "max_memory_allocated": peak,
+           "decode_profile": prof, "copy_s": copy_s,
+           "logit_gaps": {k: {"max_abs": v[0], "max_rel": v[1],
+                              "bit_identical": v[2]}
+                          for k, v in gaps.items()}}
+    for key, one in (("prefill_ms", served["prefill_ms"]),
+                     ("decode_ms_median", served["decode_ms_median"])):
+        log(f"[serve_mesh] (a) {key}: mesh {out[key]:.3f}, one card "
+            f"{one:.3f} ({out[key] / one:.4f}x)")
+    log(f"[serve_mesh] (a) decode idle share: mesh {prof['idle_share']:.3f}"
+        f", one card {served['decode_profile']['idle_share']:.3f}; decode "
+        f"step median {step_med:.4f} ms over 16 (min {min(step_ms):.4f}, "
+        f"max {max(step_ms):.4f})")
+    del smodel, view, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sm_drops(torch):
+    """Patch the routers of both paths (`moe.route`, one card;
+    `moe.route_exchanged`, the mesh) to count the dropped (token, slot)
+    pairs on the device; returns (counts list, undo)."""
+    from repro_torch.models import moe
+
+    seen = []
+    real = (moe.route, moe.route_exchanged)
+
+    def wrap(fn):
+        def counting(*args, **kwargs):
+            r = fn(*args, **kwargs)
+            seen.append((~r.keep).sum())
+            return r
+        return counting
+
+    moe.route, moe.route_exchanged = (wrap(f) for f in real)
+
+    def undo():
+        moe.route, moe.route_exchanged = real
+    return seen, undo
+
+
+def _sm_loop(torch, prefill, decode, next_tok, steps):
+    """prefill, then `steps` - 1 decode steps, each timed (device
+    synchronized): (tokens (b, steps), each call's logits on the CPU,
+    prefill ms, decode ms a step)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill()
+    tok = next_tok(logits)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t) * 1e3
+    out, all_logits, ms = [tok], [logits.cpu()], []
+    for _ in range(steps - 1):
+        t = time.perf_counter()
+        logits, cache = decode(cache, tok)
+        tok = next_tok(logits)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        out.append(tok)
+        all_logits.append(logits.cpu())
+    return torch.cat(out, dim=1).cpu(), all_logits, pre_ms, \
+        statistics.median(ms)
+
+
+def _sm_family(torch, dev, mesh, arch, batch, prompt, changes):
+    """(b) `arch` at full width cut as `changes` say, the mesh path
+    against the one-card path on the same weights and prompts: tokens
+    equal, each call's logits within ATTN_TOL of the row's scale (f32,
+    TF32 off: 1e-4), MoE dropped pairs equal; both paths' prefill ms and
+    decode ms a step."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import parallel
+    from repro_torch.train import serve
+
+    t0 = time.perf_counter()
+    spec, cfg, model = family_model(torch, dev, arch, **changes)
+    smodel = _sm_model(torch, spec, cfg, mesh, dev,
+                       dict(model.named_parameters()))
+    host = {"tokens": prompts(cfg, batch, prompt)}
+    if cfg.family == "encdec":
+        host["frames"] = whisper_frames(cfg, batch)
+    placed = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    view = parallel.ShardedView(smodel, smodel.layout)
+    sm = parallel.ServeMesh(smodel.layout, batch)
+    tol = F32_LOGIT_TOL if cfg.dtype == "float32" else ATTN_TOL
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seen, undo = _sm_drops(torch)
+    try:
+        with torch.inference_mode():
+            serve.greedy_decode(spec, cfg, model, host, 2, device=dev)
+            serve.greedy_decode(spec, cfg, smodel, host, 2, device=dev,
+                                mesh=mesh)
+            seen.clear()
+            ops.reset_launch_counts()
+            one = _sm_loop(
+                torch, lambda: spec.prefill(model, placed, cfg),
+                lambda c, tok: spec.decode_step(model, c, tok, cfg),
+                lambda lg: torch.argmax(lg[:, -1], dim=-1)[:, None].to(
+                    torch.int32), SM_STEPS)
+            one_drops = [int(x) for x in seen]
+            seen.clear()
+            one_counts = ops.launch_counts()
+            ops.reset_launch_counts()
+            got = _sm_loop(
+                torch, lambda: spec.mesh_prefill(view, placed, cfg, sm),
+                lambda c, tok: spec.mesh_decode_step(view, c, tok, cfg, sm),
+                lambda lg: parallel.next_token(lg, cfg, sm.tp), SM_STEPS)
+            mesh_drops = [int(x) for x in seen]
+            mesh_counts = ops.launch_counts()
+    finally:
+        undo()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    same = torch.equal(one[0], got[0])
+    gaps = [_rel_gap(torch, g, w, cfg.vocab_size)
+            for g, w in zip(got[1], one[1], strict=True)]
+    worst = max(rel for _, rel, _ in gaps)
+    rec = {"arch": arch, "changes": changes, "batch": batch,
+           "prompt": prompt, "tokens_equal": same, "worst_rel": worst,
+           "tol": tol, "bit_identical": all(b for *_, b in gaps),
+           "prefill_ms": {"one_card": one[2], "mesh": got[2]},
+           "decode_ms_median": {"one_card": one[3], "mesh": got[3]},
+           "launches": {"one_card": one_counts, "mesh": mesh_counts},
+           "dropped": {"one_card": sum(one_drops), "mesh": sum(mesh_drops)},
+           "seconds": time.perf_counter() - t0}
+    log(f"[serve_mesh] (b) {arch} {changes}, {batch} x {prompt}: tokens "
+        f"equal {same}; logits worst {worst:.4e} of the row's scale (tol "
+        f"{tol}), bit-identical {rec['bit_identical']}; prefill ms one "
+        f"card {one[2]:.3f} / mesh {got[2]:.3f}; decode ms a step "
+        f"{one[3]:.3f} / {got[3]:.3f}; launches {one_counts} / "
+        f"{mesh_counts}; dropped pairs {rec['dropped']}; "
+        f"{rec['seconds']:.1f} s")
+    require(same, f"(b) {arch}: the mesh path's tokens differ")
+    require(worst <= tol, f"(b) {arch}: the mesh path's logits disagree")
+    require(one_counts == mesh_counts,
+            f"(b) {arch}: the paths launched {one_counts} / {mesh_counts}")
+    require(one_drops == mesh_drops,
+            f"(b) {arch}: dropped pairs {one_drops} / {mesh_drops}")
+    del model, smodel, view
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _sm_rank_share(torch, dev, cfg, held, results):
+    """(c) flash_attention at one rank's share of yi-6b's heads at (model
+    4): q (8, 4096, 8, 128) against k, v (8, 4096, 1, 128), causal, from
+    layer 0 of phase 11's prefill; held to its plain version, 3 calls
+    bit-identical, timed beside its bound, plain version and SDPA."""
+    tokens = torch.from_numpy(prompts(cfg, SERVE_BATCH, PROMPT)).to(dev)
+    q, k, v = layer0_qkv(torch, held["model"], cfg, tokens)
+    hq = cfg.num_heads // SM_RANK_HEADS
+    hk = cfg.num_kv_heads // SM_RANK_HEADS
+    q, k, v = (x[:, :, :n].contiguous() for x, n in ((q, hq), (k, hk),
+                                                       (v, hk)))
+    del tokens
+    torch.cuda.empty_cache()
+    entry = _attn_timed(torch, "a rank's share of yi-6b at (model 4)", q, k,
+                        v, True)
+    results["flash_attention"]["max_abs_err"] = max(
+        results["flash_attention"]["max_abs_err"], entry["max_abs_err"])
+    del q, k, v
+    torch.cuda.empty_cache()
+    return entry
+
+
+def _sm_launch(torch):
+    """(d) launch.serve --arch mixtral-8x22b --smoke under torchrun
+    --nproc-per-node 1 (an NCCL mesh of one rank, the mesh flags at 1)
+    and as one process: the same tokens md5. (A smoke config's head dim
+    of 16 is not the kernel's: mixtral's window takes the blocked
+    attention.)"""
+    import os
+
+    argv = ["-m", "repro_torch.launch.serve", "--arch", MIXTRAL, "--smoke"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
+                                         env.get("PYTHONPATH", "")])
+    out = {}
+    for tag, cmd in (("torchrun", [sys.executable, "-m",
+                                   "torch.distributed.run", "--standalone",
+                                   "--nproc-per-node", "1"] + argv),
+                     ("one process", [sys.executable] + argv)):
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=400, cwd=ROOT)
+        require(proc.returncode == 0,
+                f"launch.serve ({tag}) failed: {proc.stderr[-3000:]}")
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        out[tag] = dict(json.loads(line[-1]), wall_s=time.perf_counter() - t)
+        log(f"[serve_mesh] (d) launch.serve --arch {MIXTRAL} --smoke {tag}: "
+            f"{out[tag]}")
+    require(out["torchrun"]["tokens_md5"] == out["one process"]["tokens_md5"]
+            and out["torchrun"]["mesh"] == {"data": 1, "model": 1},
+            "launch.serve under torchrun differs from one process")
+    return out
+
+
+def phase_serve_mesh(torch, dev, smi, spec, cfg, held, served, results):
+    """18. dense serving over a mesh, on an NCCL group of one rank, mesh
+    (data 1, model 1), right after phase 11 on its model (`held`, freed
+    here once the blocks are copied); every number from this card
+    (`smi`, printed first)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    log(f"[serve_mesh] {smi}")
+    t0 = time.perf_counter()
+    out = {"rank_share": _sm_rank_share(torch, dev, cfg, held, results)}
+    _nccl_one_rank(torch, "nccl_store_serve_mesh")
+    try:
+        mesh = make_host_mesh(1, 1)
+        out["config3"] = _sm_config3(torch, dev, mesh, spec, cfg, held,
+                                     served)
+        out["families"] = [_sm_family(torch, dev, mesh, *f)
+                           for f in SM_FAMILIES]
+    finally:
+        dist.destroy_process_group()
+    out["launch"] = _sm_launch(torch)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[serve_mesh] phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -5095,7 +5482,11 @@ def main():
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
     phase_attention(torch, dev, model, cfg, results)
     served = phase_serve(torch, dev, spec, cfg, model, results)
+    held = {"model": model}
     del model
+    serve_mesh = phase_serve_mesh(torch, dev, smi, spec, cfg, held, served,
+                                  results)
+    del held
     torch.cuda.empty_cache()
     dense_parity = phase_dense_parity(torch, dev)
     cfg9 = {}
@@ -5125,7 +5516,7 @@ def main():
          "parity": parity, "sparse_serve": sparse_serve, "serve": served,
          "dense_parity": dense_parity, "train_dense": train_dense,
          "moe": moe, "families": families, "distribution": distribution,
-         "model_parallel": model_parallel},
+         "model_parallel": model_parallel, "serve_mesh": serve_mesh},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))

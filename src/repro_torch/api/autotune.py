@@ -33,14 +33,15 @@ from repro_torch.api.strategies import (
     get_strategy,
     list_strategies,
 )
+from repro_torch.configs.base import H100_NDR_GBPS, H100_NVLINK_GBPS
 
 
 class WireBandwidth(NamedTuple):
     """Per-tier one-direction wire speeds in GB/s (data-sheet defaults,
     see the module note; pass measured values for a real fabric)."""
 
-    inner_gbps: float = 450.0   # NVLink 4 inside a host, one way a card
-    outer_gbps: float = 50.0    # one 400 Gb/s NDR port a card, between hosts
+    inner_gbps: float = H100_NVLINK_GBPS   # NVLink 4 inside a host
+    outer_gbps: float = H100_NDR_GBPS      # an NDR port, between hosts
 
 
 class ScoredStrategy(NamedTuple):

@@ -23,12 +23,23 @@ always S-sharded), and `scan_layers` has no meaning for the port's loop
 over layers. `sparse_embed` is read by neither package's trainer.
 
 The reference module's TPU hardware constants are deliberately not
-carried over; the port's speed figures come from runs on the card (see
-PERF.md).
+carried over. In their place stand the data-sheet figures of the card
+the port runs on, an NVIDIA H100 SXM, in one place: `chip_smoke.py`'s
+bounds read the memory rate and the peak rates, and `api/autotune.py`'s
+wire model the link speeds. The port's measured speeds come from runs on
+the card (see PERF.md).
 """
 from __future__ import annotations
 
 import dataclasses
+
+# NVIDIA H100 SXM, from NVIDIA's data sheet
+H100_HBM_BYTES_PER_S = 3.35e12    # HBM3
+H100_F32_FLOPS = 67e12            # f32 outside the tensor cores
+H100_BF16_TC_FLOPS = 989e12       # bf16 tensor cores, dense
+H100_NVLINK_GBPS = 450.0          # NVLink 4 inside a host, one way a card
+H100_NDR_GBPS = 50.0              # one 400 Gb/s NDR port a card, between
+#                                   hosts
 
 
 @dataclasses.dataclass(frozen=True)

@@ -313,8 +313,14 @@ class ParamLayout:
     @torch.no_grad()
     def full(self, name: str, block: torch.Tensor) -> torch.Tensor:
         """The whole leaf from every rank's block (a collective)."""
+        return self.gather_spec(block, self.specs[name])
+
+    @torch.no_grad()
+    def gather_spec(self, block: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """The whole array from every rank's block of it laid out by
+        `spec` over this mesh (a collective)."""
         out = block.detach()
-        for dim, s in enumerate(self.specs[name]):
+        for dim, s in enumerate(spec):
             if s is not None:
                 out = all_gather_dim(out, self.group(s), dim)
         return out

@@ -18,10 +18,20 @@ The modes fail loudly when mixed: `--arch` is rejected under `--sparse`,
 and `--sparse` refuses a checkpoint whose manifest is not
 `kind=dpmr_sparse`.
 
+Dense mode under torchrun serves over a mesh of its ranks, the
+reference's `--mesh-data` x `--mesh-model` (`train.serve.greedy_decode(
+..., mesh)`: parameters and caches laid out by the reference's rules, the
+batch rows over `data`); a mesh that is not torchrun's ranks is refused.
+Rank 0 prints the same lines as one process and one JSON line: the
+tokens' md5, prefill ms and decode ms a step.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
         --device cpu                       # smoke size, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
         --no-smoke --batch 8 --prompt-len 4096 --decode-steps 32  # the card
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b \\
+        --mesh-data 2 --mesh-model 2 --device cpu    # 4 gloo ranks
     PYTHONPATH=src python -m repro_torch.launch.serve --sparse \\
         --ckpt /tmp/sck                    # the card, one process
     PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
@@ -51,15 +61,41 @@ from repro_torch.models import common, registry
 from repro_torch.train import serve
 
 
-def serve_dense(args) -> torch.Tensor:
-    """Build the model from seed 0 on the device, as the reference does,
-    decode prompts from numpy seed 0, print the tokens/s, and return the
-    (B, steps) tokens."""
-    dev = resolve_device(args.device)
+def serve_dense(args) -> torch.Tensor | None:
+    """Join torchrun's process group when there is one and serve over the
+    (data, model) mesh of its ranks, or serve in one process; rank 0
+    prints the summary. Returns rank 0's (B, steps) tokens (None
+    elsewhere)."""
+    from repro_torch.launch.mesh import init_from_env, make_host_mesh
+
+    if "WORLD_SIZE" not in os.environ:
+        return run_dense(args, resolve_device(args.device))
+    device = init_from_env(args.device)
+    try:
+        return run_dense(args, device, make_host_mesh(args.mesh_data,
+                                                      args.mesh_model))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_dense(args, dev, mesh=None) -> torch.Tensor | None:
+    """Build the model from seed 0 on `dev`, as the reference does (over
+    a `mesh`, each rank its blocks of the same weights, one whole leaf at
+    a time), decode prompts from numpy seed 0, and on rank 0 print the
+    tokens/s, the first rows and one JSON line: the md5 of the (B, steps)
+    tokens, prefill ms and decode ms a step. Returns the tokens (None off
+    rank 0)."""
+    from repro_torch.train import trainer
+
     spec = registry.get_spec(args.arch)
     cfg = registry.smoke_config(args.arch) if args.smoke else spec.cfg
-    model = spec.model(cfg, device=dev)
-    common.init_params(model, torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if mesh is None:
+        model = common.init_params(spec.model(cfg, device=dev), gen)
+    else:
+        model = trainer.sharded_model(
+            spec, cfg, mesh, dev,
+            lambda name, shape: trainer.draw_leaf(shape, gen), train=False)
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
                                     size=(args.batch, args.prompt_len))}
@@ -68,14 +104,27 @@ def serve_dense(args) -> torch.Tensor:
         # draws them
         batch["frames"] = rng.normal(size=(
             args.batch, args.prompt_len, cfg.d_model)).astype(np.float32)
+    times: dict = {}
     t0 = time.perf_counter()
     toks = serve.greedy_decode(spec, cfg, model, batch, args.decode_steps,
-                               device=dev)
+                               device=dev, mesh=mesh, timings=times)
     toks = toks.cpu()
     dt = time.perf_counter() - t0
+    if mesh is not None and dist.get_rank() != 0:
+        return None
     print(f"decoded {tuple(toks.shape)} on {dev} in {dt:.2f}s "
           f"({args.batch * args.decode_steps / dt:.1f} tok/s)")
     print(toks[:2].numpy())
+    summary = {
+        "arch": args.arch,
+        "mesh": {"data": args.mesh_data, "model": args.mesh_model}
+        if mesh is not None else None,
+        "tokens_md5": hashlib.md5(
+            toks.numpy().astype(np.int32).tobytes()).hexdigest(),
+        "prefill_ms": times["prefill_s"] * 1e3,
+        "decode_ms_per_step": times["decode_s"] * 1e3
+        / max(args.decode_steps - 1, 1)}
+    print(json.dumps(summary), flush=True)
     return toks
 
 
@@ -205,9 +254,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--decode-steps", type=int, default=16)
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="dense: data dim of the mesh of torchrun's ranks "
+                         "(the batch rows)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="dense: model dim of the mesh (heads, ff, "
+                         "experts, vocab, cache slots)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the card; 'cpu' to run "
-                         "on the CPU)")
+                    help="torch device (default: the card, NCCL under "
+                         "torchrun; 'cpu' to run on the CPU, gloo)")
     # sparse serving mode
     ap.add_argument("--sparse", action="store_true",
                     help="serve the DPMR sparse face through "
@@ -264,6 +319,15 @@ def main(argv=None):
         return serve_sparse(args)
     if not args.arch:
         ap.error("--arch is required (or pass --sparse)")
+    ranks = args.mesh_data * args.mesh_model
+    if "RANK" in os.environ:                 # under torchrun: a mesh
+        if ranks != int(os.environ["WORLD_SIZE"]):
+            ap.error(f"a (data {args.mesh_data}, model {args.mesh_model}) "
+                     f"mesh needs {ranks} ranks; torchrun started "
+                     f"{os.environ['WORLD_SIZE']}")
+    elif ranks > 1:
+        ap.error("--mesh-data and --mesh-model lay out the ranks of a "
+                 "torchrun: start the program with torchrun")
     return serve_dense(args)
 
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common, layers, parallel, transformer
@@ -218,14 +219,17 @@ def tp_forward(view, batch: dict, cfg: ModelConfig,
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int,
                enc_frames: int = ENC_FRAMES) -> dict:
-    """Cache shapes and dtypes: k and v (L, B, max_len, KH, hd), xk and xv
-    (L, B, enc_frames, KH, hd), length (B,)."""
-    kh, hd, dt = cfg.num_kv_heads, cfg.resolved_head_dim, \
-        common.act_dtype(cfg)
-    kv = ((cfg.num_layers, batch, max_len, kh, hd), dt)
-    xkv = ((cfg.num_layers, batch, enc_frames, kh, hd), dt)
+    """The cache's `sharding.LeafDef`s, the reference's: k and v (L, B,
+    max_len, KH, hd) by `kv_heads` or `kv_seq`
+    (`sharding.kv_cache_logical`), xk and xv (L, B, enc_frames, KH, hd) by
+    `kv_heads`, length (B,)."""
+    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    kv = shd.LeafDef((cfg.num_layers, batch, max_len, kh, hd), cfg.dtype,
+                     shd.kv_cache_logical(kh))
+    xkv = shd.LeafDef((cfg.num_layers, batch, enc_frames, kh, hd),
+                      cfg.dtype, ("layers", "batch", None, "kv_heads", None))
     return {"k": kv, "v": kv, "xk": xkv, "xv": xkv,
-            "length": ((batch,), torch.int32)}
+            "length": shd.LeafDef((batch,), "int32", ("batch",))}
 
 
 @torch.inference_mode()
@@ -295,5 +299,94 @@ def decode_step(model: EncDec, cache: dict, tokens: torch.Tensor,
         x = x + layers.mlp_block(lp.mlp, h, cfg)
     x = layers.layer_norm(x, model.ln_f, cfg.norm_eps)
     logits = common.lm_head(model.unembed_table(), x, cfg)
+    cache["length"] += 1
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# serving over a mesh
+# ---------------------------------------------------------------------------
+
+
+def serve_encode(view, frames: torch.Tensor, cfg: ModelConfig, tp):
+    """The encoder over `model`, head-parallel on the replicated frames
+    (b, S_enc, D) (the kernel non-causal on the card), the MLP
+    ff-parallel, each summed over `model` -> the encoded frames."""
+    x = _positions(frames.to(common.act_dtype(cfg)), cfg)
+    for lp in view.encoder:
+        h = layers.layer_norm(x, lp.ln1, cfg.norm_eps)
+        x = x + parallel.serve_attention(lp.attn, h, cfg, None, tp,
+                                         causal=False)[0]
+        x = x + parallel.serve_mlp(
+            lp.mlp, layers.layer_norm(x, lp.ln2, cfg.norm_eps), cfg, tp)
+    return layers.layer_norm(x, view.ln_enc, cfg.norm_eps)
+
+
+@torch.inference_mode()
+def mesh_prefill(view, batch: dict, cfg: ModelConfig, sm):
+    """whisper's prefill over a serving mesh (`models.parallel.ServeMesh`):
+    batch {frames, tokens} of this rank's rows -> (vocab-sharded last
+    logits, this rank's cache blocks: the self K/V by `kv_seq` or
+    `kv_heads`, the cross K/V, computed once here, by `kv_heads`)."""
+    tp = sm.tp
+    enc = serve_encode(view, batch["frames"], cfg, tp)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = _positions(parallel.serve_embed(view.embed, tokens, cfg, tp), cfg)
+    defs = cache_defs(cfg, sm.batch, s + transformer.PREFILL_EXTRA,
+                      enc.shape[1])
+    cache = sm.new_cache(defs, x.device)
+    cache["length"].fill_(s)
+    place = sm.place("kv", defs["k"])
+    xplace = sm.place("xkv", defs["xk"])
+    for i, lp in enumerate(view.layers):
+        h = layers.layer_norm(x, lp.ln1, cfg.norm_eps)
+        att, k, v = parallel.serve_attention(lp.attn, h, cfg, None, tp)
+        x = x + att
+        h = layers.layer_norm(x, lp.lnx, cfg.norm_eps)
+        att, xk, xv = parallel.serve_attention(lp.xattn, h, cfg, None, tp,
+                                               causal=False, kv_x=enc)
+        x = x + att
+        x = x + parallel.serve_mlp(
+            lp.mlp, layers.layer_norm(x, lp.ln2, cfg.norm_eps), cfg, tp)
+        for name, t, pl in (("k", k, place), ("v", v, place),
+                            ("xk", xk, xplace), ("xv", xv, xplace)):
+            blk = parallel.prefill_kv_block(t, pl, cfg, tp)
+            cache[name][i, :, :blk.shape[1]] = blk
+    return parallel.serve_logits(view, x[:, -1:], cfg, tp,
+                                 layers.layer_norm), cache
+
+
+@torch.inference_mode()
+def mesh_decode_step(view, cache: dict, tokens: torch.Tensor,
+                     cfg: ModelConfig, sm):
+    """One decoder token over a serving mesh, tokens (b, 1) of this rank's
+    rows; the self K/V blocks and `length` updated IN PLACE: the self-
+    attention by `parallel.decode_self_attention`, the cross-attention
+    head-local. Returns (vocab-sharded logits, cache)."""
+    tp, place, xplace = sm.tp, sm.kv["kv"], sm.kv["xkv"]
+    b = tokens.shape[0]
+    pos = cache["length"]
+    x = parallel.serve_embed(view.embed, tokens, cfg, tp)
+    postab = layers.sinusoidal_positions(place.slots, cfg.d_model, x.dtype,
+                                         x.device)
+    x = x + postab[torch.clamp(pos, max=place.slots - 1).long()][:, None, :]
+    slot = parallel.decode_slot(pos, place, 0)
+    frames = torch.full((b,), xplace.slots, dtype=torch.int32,
+                        device=x.device)
+    for i, lp in enumerate(view.layers):
+        h = layers.layer_norm(x, lp.ln1, cfg.norm_eps)
+        x = x + parallel.decode_attention_layer(
+            lp.attn, h, cache["k"][i], cache["v"][i], pos, slot, None,
+            place, cfg, tp)
+        h = layers.layer_norm(x, lp.lnx, cfg.norm_eps)
+        qx = layers.project_q(lp.xattn, h, cfg)
+        attx = parallel.local_decode_attention(qx, cache["xk"][i],
+                                               cache["xv"][i], frames, cfg,
+                                               tp)
+        x = x + parallel.attn_out(lp.xattn, attx, cfg, tp)
+        x = x + parallel.serve_mlp(
+            lp.mlp, layers.layer_norm(x, lp.ln2, cfg.norm_eps), cfg, tp)
+    logits = parallel.serve_logits(view, x, cfg, tp, layers.layer_norm)
     cache["length"] += 1
     return logits, cache

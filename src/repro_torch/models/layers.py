@@ -487,30 +487,71 @@ def bidirectional_attention(q, k, v):
     return ops.flash_attention(q, k, v, causal=False)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
-    """Single-step decode: q (B, 1, H, hd) against the cache (B, S, KH, hd),
-    masked to cache_len ((B,) int); with a window the cache is the ring
-    of the last S positions, every slot below min(cache_len, S) valid,
-    as in the reference. The q heads are grouped as
-    (B, KH, group, hd) against their KV head, which gives the numbers of
-    the reference's `_repeat_kv` without repeating the cache group-fold;
-    the reshape of the permuted cache into the batched products' layout
-    still copies K and V once per call. Scores and the probabilities'
-    product with V are f32 products; the probabilities enter that product
-    in the cache's dtype, as in the reference."""
-    b, s, kh, hd = k_cache.shape
+def decode_attention_part(q, k_cache, v_cache, cache_len, *,
+                          slot0: int = 0, slots: int | None = None,
+                          window: int = 0):
+    """Single-step decode over a part of the cache: q (B, 1, H, hd)
+    against the slots slot0 .. slot0 + n - 1 of a cache of `slots` (all
+    of them by default), k_cache and v_cache (B, n, KH, hd). A slot is
+    valid below cache_len ((B,) int), or with a window below min(
+    cache_len, slots) (the ring of the last `slots` positions, as in the
+    reference); the mask reads the global slot index. The q heads are
+    grouped as (B, KH, group, hd) against their KV head, which gives the
+    numbers of the reference's `_repeat_kv` without repeating the cache.
+    Returns the part's unnormalised output o (B, KH, group, hd), its row
+    max m and its sum of exponentials l (B, KH, group), all f32: scores
+    are an f32 product, exp(score - m) enters the product with V in the
+    cache's dtype. `decode_combine` and `decode_finish` make the
+    attention of the parts."""
+    b, n, kh, hd = k_cache.shape
     h = q.shape[2]
     g = h // kh
+    slots = n if slots is None else slots
     qg = q.reshape(b * kh, g, hd)
-    kt = k_cache.permute(0, 2, 3, 1).reshape(b * kh, hd, s)
-    scores = common.bmm_f32(qg, kt).reshape(b, kh, g, s) / math.sqrt(hd)
-    limit = torch.clamp(cache_len, max=s) if window else cache_len
-    valid = torch.arange(s, device=q.device)[None, :] < limit[:, None]
-    scores = torch.where(valid[:, None, None, :], scores, -1e30)
-    p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    vg = v_cache.permute(0, 2, 1, 3).reshape(b * kh, s, hd)
-    out = common.bmm_f32(p.reshape(b * kh, g, s), vg)
-    return out.reshape(b, 1, h, hd).to(q.dtype)
+    kt = k_cache.permute(0, 2, 3, 1).reshape(b * kh, hd, n)
+    scores = common.bmm_f32(qg, kt).reshape(b, kh, g, n) / math.sqrt(hd)
+    limit = torch.clamp(cache_len, max=slots) if window else cache_len
+    idx = torch.arange(slot0, slot0 + n, device=q.device)
+    valid = idx[None, :] < limit[:, None]
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    m = torch.amax(scores, dim=-1)
+    e = torch.exp(scores - m[..., None])
+    vg = v_cache.permute(0, 2, 1, 3).reshape(b * kh, n, hd)
+    o = common.bmm_f32(e.to(v_cache.dtype).reshape(b * kh, g, n), vg)
+    return o.reshape(b, kh, g, hd), m, torch.sum(e, dim=-1)
+
+
+def decode_combine(o, m, l, group):
+    """The parts of `decode_attention_part` over the ranks of `group` (the
+    ranks' slots) combined by log-sum-exp: the max all-reduced, then the
+    rescaled outputs and sums in one all-reduce. Returns the whole (o, l);
+    a rank whose slots are all masked adds exp(-1e30 - max) = 0."""
+    import torch.distributed as dist
+
+    from repro_torch.core import fsdp
+
+    c = torch.exp(m - fsdp.all_reduce_max(m, group))
+    both = torch.cat([o * c[..., None], (l * c)[..., None]], dim=-1)
+    dist.all_reduce(both, group=group)
+    return both[..., :-1], both[..., -1]
+
+
+def decode_finish(o, l, dtype):
+    """(o, l) of the whole cache -> the attention (B, 1, H, hd) in
+    `dtype`."""
+    b, kh, g, hd = o.shape
+    return (o / l[..., None]).reshape(b, 1, kh * g, hd).to(dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
+    """Single-step decode: q (B, 1, H, hd) against the whole cache (B, S,
+    KH, hd), masked to cache_len ((B,) int) as `decode_attention_part`
+    masks it: that part over every slot, normalised by its own sum.
+    The permuted cache's reshape into the batched products' layout still
+    copies K and V once per call."""
+    o, _, l = decode_attention_part(q, k_cache, v_cache, cache_len,
+                                    window=window)
+    return decode_finish(o, l, q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.core import fsdp
 from repro_torch.device import resolve_device
 from repro_torch.models import (common, layers, parallel, ssm_common,
                                  transformer)
@@ -226,25 +228,91 @@ def conv_tail(x):
     return x[:, s - (CONV_K - 1):]
 
 
-def mamba_decode_step(p, x, cfg: ModelConfig, conv_buf, ssd_state):
+def mamba_decode_step(p, x, cfg: ModelConfig, conv_buf, ssd_state,
+                      tp=None):
     """One token, x (B, 1, D); conv_buf (B, K - 1, d_inner); ssd_state
-    (B, H, N, P) f32. Returns (x_out, new conv_buf, new ssd_state)."""
+    (B, H, N, P) f32. Returns (x_out, new conv_buf, new ssd_state). With
+    `tp` (`models.parallel.TP`, the heads split over `model`) `p`'s
+    leaves, conv_buf and ssd_state are the rank's channels and heads,
+    `out_norm` sums its squares over the ranks and the output is summed
+    over them."""
     di, h, n = _dims(cfg)
     b = x.shape[0]
+    hl = h if tp is None else h // tp.size
+    heads = slice(0, h) if tp is None else \
+        slice(tp.rank * hl, (tp.rank + 1) * hl)
     hdd = layers.rms_norm(x, p.norm, cfg.norm_eps)
-    xin, z, bm, cm, dt = _ssd_inputs(p, hdd, cfg)
-    seqbuf = torch.cat([conv_buf, xin], dim=1)               # (B, K, di)
+    xin, z, bm, cm, dt = _ssd_inputs(p, hdd, cfg,
+                                     None if tp is None else heads)
+    seqbuf = torch.cat([conv_buf, xin], dim=1)               # (B, K, di')
     conv = (seqbuf.to(torch.float32) * p.conv.to(torch.float32)).sum(1)
-    xh = F.silu(conv).to(x.dtype).reshape(b, h, P_HEAD)
-    dt1 = dt[:, 0]                                           # (B, H)
-    log_a = -torch.exp(p.A_log.to(torch.float32)) * dt1
-    k = bm[:, 0, None, :].expand(b, h, n)
-    q = cm[:, 0, None, :].expand(b, h, n)
+    xh = F.silu(conv).to(x.dtype).reshape(b, hl, P_HEAD)
+    dt1 = dt[:, 0]                                           # (B, H')
+    log_a = -torch.exp(p.A_log[heads].to(torch.float32)) * dt1
+    k = bm[:, 0, None, :].expand(b, hl, n)
+    q = cm[:, 0, None, :].expand(b, hl, n)
     y, ssd_state, _ = ssm_common.linear_attention_step(
         ssd_state, q, k, xh * dt1[..., None], log_a)
-    y = y + xh.to(torch.float32) * p.D_skip.to(torch.float32)[:, None]
-    out = _gated_out(p, y.reshape(b, 1, di).to(x.dtype), z, x, cfg)
-    return out, seqbuf[:, 1:], ssd_state
+    y = y + xh.to(torch.float32) \
+        * p.D_skip[heads].to(torch.float32)[:, None]
+    y = y.reshape(b, 1, hl * P_HEAD).to(x.dtype)
+    if tp is None:
+        return _gated_out(p, y, z, x, cfg), seqbuf[:, 1:], ssd_state
+    return _sharded_out(p, y, z, x, cfg, tp), seqbuf[:, 1:], ssd_state
+
+
+def _sharded_out(p, y, z, x, cfg: ModelConfig, tp):
+    """`_gated_out` of the rank's channels y, z: `out_norm`'s mean of
+    squares summed over `model`, `wo` row-parallel and its output summed
+    over `model` (the replicated stream of serving)."""
+    dt_ = x.dtype
+    y = parallel.sharded_rms_norm(y * F.silu(z.to(torch.float32)).to(dt_),
+                                  p.out_norm, cfg.norm_eps, tp,
+                                  _dims(cfg)[0])
+    return x + tp.sum(y @ p.wo.to(dt_))
+
+
+def _heads_split(cfg: ModelConfig, tp) -> bool:
+    di, h, _ = _dims(cfg)
+    return tp.splits(h) and tp.splits(di)
+
+
+def serve_mamba_block(p, x, cfg: ModelConfig, tp, conv_place):
+    """Prefill's Mamba2 block of the replicated stream x (b, S, D) over
+    `model` -> (out, this rank's block of the conv tail, of the SSD
+    state). Head-parallel where the heads and d_inner split (each rank
+    scans its heads); else whole on its leaves gathered at use, the conv
+    tail cut to the cache's block (`conv_place`, its channels: d_inner
+    may split where the heads do not)."""
+    if _heads_split(cfg, tp):
+        h = _dims(cfg)[1]
+        hdd = layers.rms_norm(x, p.norm, cfg.norm_eps)
+        y, z, xin_raw, state = _ssd(p, hdd, x.dtype, cfg,
+                                    tp.rank * (h // tp.size),
+                                    return_state=True)
+        return _sharded_out(p, y, z, x, cfg, tp), conv_tail(xin_raw), \
+            state[0]
+    out, (tail, state) = mamba_block(p.regather(("data", "model")), x, cfg,
+                                     return_state=True)
+    c0, cn = conv_place
+    return out, tail[..., c0:c0 + cn], state
+
+
+def serve_mamba_decode(p, x, cfg: ModelConfig, tp, conv_buf, ssd_state,
+                       conv_place):
+    """Decode's Mamba2 step over `model` on the rank's cache blocks ->
+    (out, conv block, SSD state): head-parallel where the heads split,
+    else whole on its leaves and the conv tail gathered at use, the new
+    tail cut back to the rank's channels."""
+    if _heads_split(cfg, tp):
+        return mamba_decode_step(p, x, cfg, conv_buf, ssd_state, tp)
+    di = _dims(cfg)[0]
+    if tp.splits(di):
+        conv_buf = fsdp.all_gather_dim(conv_buf, tp.group, 2)
+    out, conv, ssd_state = mamba_decode_step(
+        p.regather(("data", "model")), x, cfg, conv_buf, ssd_state)
+    c0, cn = conv_place
+    return out, conv[..., c0:c0 + cn], ssd_state
 
 
 # ---------------------------------------------------------------------------
@@ -309,15 +377,23 @@ def tp_forward(view, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """Cache shapes and dtypes: conv (L, B, K - 1, d_inner), ssd (L, B, H,
-    N, P) f32, k and v (n_inv, B, max_len, KH, hd), length (B,)."""
+    """The cache's `sharding.LeafDef`s, the reference's
+    (`zamba_cache_defs`): conv (L, B, K - 1, d_inner) in `cfg.dtype` by
+    `ssm_inner`, ssd (L, B, H, N, P) f32 by `ssm_heads`, k and v
+    (n_inv, B, max_len, KH, hd) by `kv_heads` or `kv_seq`
+    (`sharding.kv_cache_logical`), length (B,)."""
     di, h, n = _dims(cfg)
-    kv = ((_n_inv(cfg), batch, max_len, cfg.num_kv_heads,
-           cfg.resolved_head_dim), common.act_dtype(cfg))
-    return {"conv": ((cfg.num_layers, batch, CONV_K - 1, di),
-                     common.act_dtype(cfg)),
-            "ssd": ((cfg.num_layers, batch, h, n, P_HEAD), torch.float32),
-            "k": kv, "v": kv, "length": ((batch,), torch.int32)}
+    kv = shd.LeafDef((_n_inv(cfg), batch, max_len, cfg.num_kv_heads,
+                      cfg.resolved_head_dim), cfg.dtype,
+                     shd.kv_cache_logical(cfg.num_kv_heads, None))
+    return {"conv": shd.LeafDef((cfg.num_layers, batch, CONV_K - 1, di),
+                                cfg.dtype,
+                                ("layers", "batch", None, "ssm_inner")),
+            "ssd": shd.LeafDef((cfg.num_layers, batch, h, n, P_HEAD),
+                               "float32",
+                               ("layers", "batch", "ssm_heads", None, None)),
+            "k": kv, "v": kv,
+            "length": shd.LeafDef((batch,), "int32", ("batch",))}
 
 
 @torch.inference_mode()
@@ -389,5 +465,73 @@ def decode_step(model: Zamba, cache: dict, tokens: torch.Tensor,
         x = x + layers.mlp_block(sp.mlp, h, cfg)
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     logits = common.lm_head(model.unembed_table(), x, cfg)
+    cache["length"] += 1
+    return logits, cache
+
+
+@torch.inference_mode()
+def mesh_prefill(view, tokens: torch.Tensor, cfg: ModelConfig, sm):
+    """zamba2's prefill over a serving mesh (`models.parallel.ServeMesh`):
+    tokens (b, S) of this rank's rows -> (vocab-sharded last logits,
+    this rank's cache blocks: conv by `ssm_inner`, ssd by `ssm_heads`, the
+    shared block's K/V by `kv_heads` or `kv_seq`)."""
+    b, s = tokens.shape
+    every = max(cfg.attn_every, 1)
+    tp = sm.tp
+    defs = cache_defs(cfg, sm.batch, s + transformer.PREFILL_EXTRA)
+    cache = sm.new_cache(defs, tokens.device)
+    cache["length"].fill_(s)
+    place = sm.place("kv", defs["k"])
+    conv_place = sm.kv["conv"] = sm.block(defs["conv"])[3]
+    x = parallel.serve_embed(view.embed, tokens, cfg, tp)
+    tables = transformer.rope_tables(torch.arange(
+        s, dtype=torch.int32, device=x.device), cfg)
+    sp = view.shared
+    for i, lp in enumerate(view.layers):
+        x, tail, state = serve_mamba_block(lp, x, cfg, tp, conv_place)
+        cache["conv"][i] = tail
+        cache["ssd"][i] = state
+        if (i + 1) % every:
+            continue
+        g = i // every
+        h = layers.rms_norm(x, sp.ln1, cfg.norm_eps)
+        att, k, v = parallel.serve_attention(sp.attn, h, cfg, tables, tp)
+        x = x + att
+        x = x + parallel.serve_mlp(
+            sp.mlp, layers.rms_norm(x, sp.ln2, cfg.norm_eps), cfg, tp)
+        for name, t in (("k", k), ("v", v)):
+            blk = parallel.prefill_kv_block(t, place, cfg, tp)
+            cache[name][g, :, :blk.shape[1]] = blk
+    return parallel.serve_logits(view, x[:, -1:], cfg, tp), cache
+
+
+@torch.inference_mode()
+def mesh_decode_step(view, cache: dict, tokens: torch.Tensor,
+                     cfg: ModelConfig, sm):
+    """One decode step over a serving mesh, tokens (b, 1) of this rank's
+    rows; its cache blocks updated IN PLACE. Returns (vocab-sharded
+    logits, cache)."""
+    every = max(cfg.attn_every, 1)
+    tp, place, conv_place = sm.tp, sm.kv["kv"], sm.kv["conv"]
+    pos = cache["length"]
+    x = parallel.serve_embed(view.embed, tokens, cfg, tp)
+    slot = parallel.decode_slot(pos, place, 0)
+    tables = transformer.rope_tables(pos[:, None], cfg)
+    sp = view.shared
+    for i, lp in enumerate(view.layers):
+        x, conv, ssd = serve_mamba_decode(lp, x, cfg, tp, cache["conv"][i],
+                                          cache["ssd"][i], conv_place)
+        cache["conv"][i] = conv
+        cache["ssd"][i] = ssd
+        if (i + 1) % every:
+            continue
+        g = i // every
+        h = layers.rms_norm(x, sp.ln1, cfg.norm_eps)
+        x = x + parallel.decode_attention_layer(
+            sp.attn, h, cache["k"][g], cache["v"][g], pos, slot, tables,
+            place, cfg, tp)
+        x = x + parallel.serve_mlp(
+            sp.mlp, layers.rms_norm(x, sp.ln2, cfg.norm_eps), cfg, tp)
+    logits = parallel.serve_logits(view, x, cfg, tp)
     cache["length"] += 1
     return logits, cache

@@ -43,7 +43,11 @@ experts' owners by an all-to-all over `model` and come back the same way
 (`moe_block(..., ep=group)`); split by `ff` otherwise (mixtral's 8 on a
 wider `model`): each rank routes the whole sequence and computes its ff
 columns, a partial output that the caller sums over `model`; or whole,
-where neither divides.
+where neither divides. Serving keeps the stream whole on every `model`
+rank (`models.parallel.serve_moe_ffn`): each rank applies its own
+experts, or its ff columns, to the buffers of the tokens it already
+holds (`dispatch_combine(..., local=...)`), and the f32 partial outputs
+are summed over `model`.
 """
 from __future__ import annotations
 
@@ -247,8 +251,9 @@ def _experts(p, xin: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p.wo.to(dt))
 
 
-def _dispatch_combine(p, x, idx, gates, keep, pos, group, groups: int,
-                      cap: int, e: int, ep=None):
+def dispatch_combine(p, x, idx, gates, keep, pos, group, groups: int,
+                      cap: int, e: int, ep=None, local=None,
+                      cast: bool = True):
     """x (n, d) through the experts: each kept pair's row copied into its
     expert's buffer of the (E, groups, C) layout at (its group, its
     position), the experts applied, each token's output the sum over its
@@ -268,6 +273,13 @@ def _dispatch_combine(p, x, idx, gates, keep, pos, group, groups: int,
     src = torch.full((rows + 1,), n, dtype=torch.long, device=x.device)
     src.scatter_(0, slot.reshape(-1), tok.reshape(-1))
     x_pad = torch.cat([x, x.new_zeros(1, d)])
+    if local is not None:
+        gc = groups * cap
+        a, b = local[0] * gc, (local[0] + local[1]) * gc
+        yo = _experts(p, x_pad[src[a:b]].view(local[1], gc, d))
+        yo_pad = yo.new_zeros((rows + 1, d))
+        yo_pad[a:b] = yo.reshape(-1, d)
+        return _combine(yo_pad, slot, gates, k, dt, cast)
     xin = x_pad[src[:rows]].view(e, groups * cap, d)
     if ep is None:
         yo = _experts(p, xin)
@@ -280,12 +292,19 @@ def _dispatch_combine(p, x, idx, gates, keep, pos, group, groups: int,
         yo = fsdp.exchange(yo.reshape(e // m, m, groups * cap, d)
                            .transpose(0, 1), ep)
     yo_pad = torch.cat([yo.reshape(rows, d), yo.new_zeros(1, d)])
+    return _combine(yo_pad, slot, gates, k, dt, cast)
+
+
+def _combine(yo_pad, slot, gates, k: int, dt, cast: bool = True):
+    """Each token's output: the sum over its k slots of the gate (rounded
+    to `dt`) times its buffer row, in f32, cast to `dt` once (unless not
+    `cast`)."""
     w = gates.to(dt).to(torch.float32)
     out = None
     for j in range(k):
         term = w[:, j:j + 1] * yo_pad[slot[:, j]].to(torch.float32)
         out = term if out is None else out + term
-    return out.to(dt)
+    return out.to(dt) if cast else out
 
 
 def moe_block(p, x: torch.Tensor, cfg: ModelConfig,
@@ -305,7 +324,7 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig,
         ng = r.idx.shape[0]
         group = torch.arange(ng, device=x.device).repeat_interleave(
             n // ng)
-        out = _dispatch_combine(p, x.reshape(n, d), r.idx.reshape(n, k),
+        out = dispatch_combine(p, x.reshape(n, d), r.idx.reshape(n, k),
                                 r.gates.reshape(n, k),
                                 r.keep.reshape(n, k), r.pos.reshape(n, k),
                                 group, ng, r.capacity, e)
@@ -313,7 +332,7 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig,
                                    dim=-1)) * (e * e / k)
         return out.reshape(b, s, d), aux
     r = route_exchanged(p, x, cfg, group_size, exchange)
-    out = _dispatch_combine(p, x.reshape(n, d), r.idx.reshape(n, k),
+    out = dispatch_combine(p, x.reshape(n, d), r.idx.reshape(n, k),
                             r.gates.reshape(n, k), r.keep.reshape(n, k),
                             r.pos.reshape(n, k), r.group.reshape(n),
                             r.groups, r.capacity, e, ep)

@@ -48,16 +48,36 @@ are gathered; the MLP is the same ff-sharded one.
 The numbers equal the reference's up to the order of f32 sums;
 `seq_shard=False` (a replicated stream in the reference) gives the same
 numbers and is laid out the same way here.
+
+Serving over a mesh of `data` and `model` (`ServeMesh`, each family's
+`mesh_prefill` and `mesh_decode_step`) lays the parameters out as the
+trainer stores them and each cache leaf by its logical axes, as the
+reference's dry run places them: the batch rows over `data`, K/V slots
+over `model` (`kv_seq`) unless 16 divides the KV heads (`kv_heads`),
+the SSM states by heads and channels, a dim that `model` does not
+divide whole. The residual stream is whole on every `model` rank (the
+reference's `seq_shard=False`: any prompt length serves): each block's
+partial output (the rank's heads, ff columns or experts) is all-reduced
+over `model`; prefill's K/V reach the slot-split cache by one
+all-to-all; a decode step gathers q's heads, takes each rank's
+attention over its slots and combines the parts by log-sum-exp; the
+greedy token is the vocab-parallel argmax, the first of equal maxima. A
+mesh of one rank runs every collective over its one-rank groups and
+gives the dense and MoE families' one-card numbers bit for bit.
 """
 from __future__ import annotations
 
 import inspect
+import math
 import types
+from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import fsdp
 from repro_torch.models import common, layers, moe, transformer
@@ -125,6 +145,16 @@ class TP:
         n = x.shape[1] // self.size
         return x.narrow(1, self.rank * n, n)
 
+    def splits(self, n: int) -> bool:
+        """Whether a dim of n splits over `model` (the rules' test)."""
+        return n % self.size == 0
+
+    def sum(self, x):
+        """A partial result (the rank's heads, ff columns or experts)
+        summed over `model` in place: a collective even at one rank."""
+        dist.all_reduce(x, group=self.group)
+        return x
+
     def back_to_stream(self, out, partial: bool):
         """A block's output over the whole sequence -> this rank's S-shard:
         summed over the ranks when each holds a part of its heads or ff
@@ -148,16 +178,21 @@ def check_tp(cfg: ModelConfig, seq: int, tp: TP) -> None:
                          f"each of {bad} to divide by {m}")
 
 
-def vocab_parallel_embed(table, tokens, cfg: ModelConfig, tp: TP):
+def _vocab_rows(table, tokens, cfg: ModelConfig, tp: TP):
     """The rank's vocab rows (V/m, d) looked up for every token, other
-    ranks' tokens zero, summed over `model` and S-sharded: (B, S/m, d) in
-    `cfg.dtype`."""
+    ranks' tokens zero: (B, S, d) in `cfg.dtype`, a partial sum over
+    `model`."""
     v_loc = table.shape[0]
     ids = tokens.long() - tp.rank * v_loc
     inside = (ids >= 0) & (ids < v_loc)
     rows = F.embedding(ids.clamp(0, v_loc - 1), table)
-    x = torch.where(inside[..., None], rows, 0).to(common.act_dtype(cfg))
-    return tp.seq_scatter(x)
+    return torch.where(inside[..., None], rows, 0).to(common.act_dtype(cfg))
+
+
+def vocab_parallel_embed(table, tokens, cfg: ModelConfig, tp: TP):
+    """The rank's vocab rows looked up for every token, summed over
+    `model` and S-sharded: (B, S/m, d) in `cfg.dtype`."""
+    return tp.seq_scatter(_vocab_rows(table, tokens, cfg, tp))
 
 
 def vocab_parallel_logits(table, x, cfg: ModelConfig, tp: TP):
@@ -364,3 +399,356 @@ def tp_forward(view, tokens, cfg: ModelConfig, parallel: ParallelConfig,
                      parallel.moe_group)
         aux = aux + a
     return tp_logits(view, x, cfg, tp), aux
+
+
+# ---------------------------------------------------------------------------
+# serving over a mesh: prefill and greedy decode
+# ---------------------------------------------------------------------------
+
+
+class KVPlace(NamedTuple):
+    """This rank's block of a K/V cache leaf (lead, B, slots, KH, hd): its
+    slots [s0, s0 + sn) of `slots` and its KV heads [h0, h0 + hn);
+    `by_slots`, `by_heads`: whether that dim is split over `model`."""
+
+    s0: int
+    sn: int
+    slots: int
+    by_slots: bool
+    h0: int
+    hn: int
+    by_heads: bool
+
+
+class ServeMesh:
+    """A rank's place in a serving mesh of dims `data` and `model`
+    (`launch.mesh.make_host_mesh`) for a global batch of `batch` rows, as
+    the reference's `serve_dense` lays it out: the parameters by their
+    logical axes (`layout`, `core.fsdp.ParamLayout`), the batch rows
+    over `data` (every rank's whole batch where `data` does not divide
+    it, as the rules replicate a dim they cannot split), each cache leaf
+    by its logical axes; `tp` is the `model` group. Prefill keeps here
+    the cache's defs (`defs`) and the places of its K/V and conv leaves
+    (`kv`), for the decode steps."""
+
+    def __init__(self, layout, batch: int):
+        if set(layout.shape) != {"data", "model"}:
+            raise ValueError(f"serving takes a mesh of dims data and model "
+                             f"(make_host_mesh), not {layout.shape}")
+        self.layout, self.batch = layout, batch
+        self.tp = TP(layout)
+        dp = layout.size("data")
+        self.rows_split = batch % dp == 0
+        self.rows = batch // dp if self.rows_split else batch
+        self.row0 = layout.coord["data"] * self.rows \
+            if self.rows_split else 0
+        self.kv: dict = {}
+        self.defs = None
+
+    def my_rows(self, x):
+        """This rank's rows of a global (B, ...) batch."""
+        return x[self.row0:self.row0 + self.rows]
+
+    def exchange(self) -> moe.Exchange:
+        """Where this rank's MoE tokens lie: its rows of the batch, every
+        position of them (the stream is not S-sharded)."""
+        if not self.rows_split:
+            return moe.Exchange((), 0, 1)
+        return moe.Exchange((self.layout.group("data"),),
+                            self.layout.coord["data"],
+                            self.layout.size("data"))
+
+    def block(self, d: shd.LeafDef) -> tuple:
+        """(start, length) of this rank's block of `d` along each dim."""
+        out = []
+        for size, s in zip(d.shape, d.spec(self.layout.mesh), strict=True):
+            n = size // self.layout.size(s) if s else size
+            out.append((self.layout.coord[s] * n if s else 0, n))
+        return tuple(out)
+
+    def new_cache(self, defs, device):
+        """Zero blocks of a cache's tree of LeafDefs on `device`."""
+        self.kv, self.defs = {}, defs
+        return transformer.new_cache(defs, device, shd.tree_map(
+            lambda d: tuple(n for _, n in self.block(d)), defs))
+
+    def place(self, key, d: shd.LeafDef) -> KVPlace:
+        """The place of the K/V cache leaf `d`, kept under `key`."""
+        (s0, sn), (h0, hn) = self.block(d)[2:4]
+        spec = d.spec(self.layout.mesh)
+        self.kv[key] = KVPlace(s0, sn, d.shape[2], spec[2] is not None, h0,
+                               hn, spec[3] is not None)
+        return self.kv[key]
+
+    def full(self, block, d: shd.LeafDef):
+        """The whole leaf `d` from every rank's block (a collective)."""
+        return self.layout.gather_spec(block, d.spec(self.layout.mesh))
+
+
+def serve_embed(table, tokens, cfg: ModelConfig, tp: TP):
+    """The token embedding of the replicated stream: the rank's vocab
+    rows summed over `model` (the whole table's lookup where the padded
+    vocab does not split) -> (b, S, d) in `cfg.dtype`."""
+    if not tp.splits(common.padded_vocab(cfg)):
+        return common.embed_tokens(table, tokens, cfg)
+    return tp.sum(_vocab_rows(table, tokens, cfg, tp))
+
+
+def serve_logits(view, x, cfg: ModelConfig, tp: TP, norm=layers.rms_norm):
+    """The final norm of x (b, s, d) times the rank's vocab columns: (b,
+    s, V_pad/m) f32 (the whole vocab where it does not split)."""
+    x = norm(x, view.ln_f, cfg.norm_eps)
+    if tp.splits(common.padded_vocab(cfg)):
+        return vocab_parallel_logits(view.unembed_table(), x, cfg, tp)
+    return common.lm_head(view.unembed_table(), x, cfg)
+
+
+def next_token(logits, cfg: ModelConfig, tp: TP):
+    """Greedy tokens (b, 1) int32 of the last position of vocab-sharded
+    logits: `jnp.argmax`'s index over the padded vocabulary, the first of
+    equal maxima. Each rank takes its first maximum; of equal maxima
+    across ranks the lowest global column wins (one all-gather of the b
+    (value, column) pairs, exact in f64)."""
+    last = logits[:, -1]
+    idx = torch.argmax(last, dim=-1)
+    if not tp.splits(common.padded_vocab(cfg)):
+        return idx[:, None].to(torch.int32)
+    val = torch.gather(last, -1, idx[:, None])[:, 0]
+    col = idx + tp.rank * last.shape[-1]
+    pairs = torch.stack([val.to(torch.float64), col.to(torch.float64)])
+    every = fsdp.all_gather_dim(pairs[None], tp.group, 0)   # (m, 2, b)
+    vals, cols = every[:, 0], every[:, 1]
+    best = torch.amax(vals, dim=0)
+    cols = torch.where(vals == best, cols, math.inf)
+    return torch.amin(cols, dim=0).to(torch.int32)[:, None]
+
+
+def attn_out(p, att, cfg: ModelConfig, tp: TP):
+    """The output projection of the rank's heads, summed over `model`
+    where the heads split (else every rank's whole output)."""
+    out = layers.project_out(p, att)
+    return tp.sum(out) if tp.splits(cfg.num_heads) else out
+
+
+def serve_attention(p, h, cfg: ModelConfig, tables, tp: TP, *,
+                    causal: bool = True, kv_x=None):
+    """Prefill's head-parallel attention of the replicated stream h (b, S,
+    d): q of the rank's heads, K/V of its KV heads (all of them where
+    they do not split; each q head then takes its KV head), the
+    `flash_attention` kernel on the card (causal; non-causal, or
+    cross-attention over `kv_x`, with `causal=False`; a sliding window
+    takes the blocked schedule), the output summed over `model`. Returns
+    (out (b, S, d), k, v: the projection's K/V heads)."""
+    q = layers.project_q(p, h, cfg)
+    k, v = layers.project_kv(p, h if kv_x is None else kv_x, cfg)
+    if kv_x is None:
+        q, k = transformer.rope(q, k, tables)
+    kq, vq = _local_kv(k, v, cfg, tp, q.shape[2])
+    if causal and kv_x is None:
+        att = layers.causal_self_attention(q, kq, vq,
+                                           window=cfg.sliding_window)
+    else:
+        att = layers.bidirectional_attention(q, kq, vq)
+    return attn_out(p, att, cfg, tp), k, v
+
+
+def prefill_kv_block(k, place: KVPlace, cfg: ModelConfig, tp: TP,
+                     window: int = 0):
+    """Prefill's K (or V) of a layer, k (b, S, KH', hd) for the KV heads
+    of the projection (the rank's where they split over `model`), ->
+    this rank's block of the cache over its first n slots (b, n, hn, hd):
+    slot j holds position j, or under a window position S - slots + j
+    (the ring). K split by heads into a cache whole on heads (the
+    `kv_seq` rule) takes one all-to-all over `model` (each rank sends
+    every other its heads of that rank's slots), or an all-gather where
+    the slots do not split either."""
+    s = k.shape[1]
+    fill = min(s, place.slots) if window else s
+    src = k[:, s - fill:]
+    if not place.by_heads and tp.splits(cfg.num_kv_heads):
+        if not place.by_slots:
+            return fsdp.all_gather_dim(src, tp.group, 2)
+        b, _, kh, hd = src.shape
+        src = F.pad(src, (0, 0, 0, 0, 0, place.slots - fill))
+        blocks = src.reshape(b, tp.size, place.sn, kh, hd).transpose(0, 1)
+        got = fsdp.all_to_all(blocks, tp.group)      # (m, b, sn, kh, hd)
+        return got.permute(1, 2, 0, 3, 4).reshape(b, place.sn, -1, hd)
+    if place.by_heads and src.shape[2] != place.hn:
+        src = src[:, :, place.h0:place.h0 + place.hn]
+    return src[:, place.s0:min(place.s0 + place.sn, fill)]
+
+
+def decode_kv_write(cache, k_new, slot, place: KVPlace, cfg: ModelConfig,
+                    tp: TP):
+    """Decode's K (or V) k_new (b, 1, KH', hd) into this rank's block of
+    a layer's cache (b, sn, hn, hd) IN PLACE, at the global slot `slot`
+    (b,): the rank that owns each row's slot writes every KV head of it
+    (gathered over `model` where the projection splits them and the
+    cache does not), or under the `kv_heads` layout its own heads."""
+    kn = k_new[:, 0]
+    if not place.by_heads and tp.splits(cfg.num_kv_heads):
+        kn = fsdp.all_gather_dim(kn, tp.group, 1)
+    elif place.by_heads and kn.shape[1] != place.hn:
+        kn = kn[:, place.h0:place.h0 + place.hn]
+    rows = torch.arange(kn.shape[0], device=kn.device)
+    local = slot - place.s0
+    if not place.by_slots:
+        cache[rows, local] = kn
+        return
+    mine = (local >= 0) & (local < place.sn)
+    local = torch.clamp(local, 0, place.sn - 1)
+    cache[rows, local] = torch.where(mine[:, None, None], kn,
+                                     cache[rows, local])
+
+
+def local_decode_attention(q, k_cache, v_cache, length, cfg: ModelConfig,
+                           tp: TP, window: int = 0):
+    """Decode attention of the rank's q heads against a cache that holds
+    their KV heads (the `kv_heads` layout; whisper's cross K/V) or all of
+    them (each q head then takes its KV head), over every slot."""
+    k_cache, v_cache = _local_kv(k_cache, v_cache, cfg, tp, q.shape[2])
+    return layers.decode_attention(q, k_cache, v_cache, length,
+                                   window=window)
+
+
+def decode_self_attention(q, k_cache, v_cache, length, place: KVPlace,
+                          cfg: ModelConfig, tp: TP, window: int = 0):
+    """Decode attention of q (b, 1, H', hd), the rank's heads, against
+    this rank's block of the cache -> (b, 1, H', hd). Under the `kv_heads`
+    layout each rank attends with its own heads over every slot. Under
+    `kv_seq` q's heads are gathered over `model`, each rank takes the
+    partial over its slots (`layers.decode_attention_part`, the mask by
+    global slot), the parts are combined by log-sum-exp over `model`
+    (`layers.decode_combine`), and each rank keeps its heads."""
+    if place.by_heads:
+        return local_decode_attention(q, k_cache, v_cache, length, cfg, tp,
+                                      window)
+    heads = q.shape[2]
+    split = tp.splits(cfg.num_heads)
+    if split:
+        q = fsdp.all_gather_dim(q, tp.group, 2)
+    o, m, l = layers.decode_attention_part(q, k_cache, v_cache, length,
+                                           slot0=place.s0,
+                                           slots=place.slots, window=window)
+    if place.by_slots:
+        o, l = layers.decode_combine(o, m, l, tp.group)
+    out = layers.decode_finish(o, l, q.dtype)
+    if split:
+        out = out[:, :, tp.rank * heads:(tp.rank + 1) * heads]
+    return out
+
+
+def serve_mlp(p, h, cfg: ModelConfig, tp: TP):
+    """The MLP of the replicated stream, the rank's ff columns summed over
+    `model` (whole where ff does not split)."""
+    out = layers.mlp_block(p, h, cfg)
+    return tp.sum(out) if tp.splits(cfg.d_ff) else out
+
+
+def serve_moe_ffn(p, h, cfg: ModelConfig, sm: ServeMesh):
+    """The MoE FFN of the replicated stream h (b, S, d), this rank's rows:
+    routed over the batch's rows on every `data` rank
+    (`moe.route_exchanged`: a group may span them; the kept and dropped
+    pairs are the reference's), then each rank's experts (where they
+    split over `model`) or ff columns applied to the buffers of its own
+    tokens, which every `model` rank holds, and the f32 partial outputs
+    summed over `model`: the reference's layout of a replicated stream,
+    where the dispatch of each rank's experts is local."""
+    tp = sm.tp
+    b, s, d = h.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    n = b * s
+    r = moe.route_exchanged(p, h, cfg, moe.GROUP_SIZE, sm.exchange())
+    local = (tp.rank * (e // tp.size), e // tp.size) if tp.splits(e) \
+        else None
+    out = moe.dispatch_combine(
+        p, h.reshape(n, d), r.idx.reshape(n, k), r.gates.reshape(n, k),
+        r.keep.reshape(n, k), r.pos.reshape(n, k), r.group.reshape(n),
+        r.groups, r.capacity, e, local=local, cast=False)
+    if tp.splits(e) or tp.splits(cfg.d_ff):
+        tp.sum(out)
+    return out.to(h.dtype).reshape(b, s, d)
+
+
+def serve_ffn(p, h, cfg: ModelConfig, sm: ServeMesh):
+    if cfg.num_experts:
+        return serve_moe_ffn(p, h, cfg, sm)
+    return serve_mlp(p, h, cfg, sm.tp)
+
+
+def decode_attention_layer(p, h, k_cache, v_cache, pos, slot, tables,
+                           place: KVPlace, cfg: ModelConfig, tp: TP):
+    """A decode step's attention of the normed token h (b, 1, d): q, K/V
+    of the rank's heads, RoPE at `pos`, K/V written at `slot`
+    (`decode_kv_write`), `decode_self_attention`, the output summed over
+    `model`."""
+    q = layers.project_q(p, h, cfg)
+    k_new, v_new = layers.project_kv(p, h, cfg)
+    q, k_new = transformer.rope(q, k_new, tables)
+    decode_kv_write(k_cache, k_new, slot, place, cfg, tp)
+    decode_kv_write(v_cache, v_new, slot, place, cfg, tp)
+    att = decode_self_attention(q, k_cache, v_cache, pos + 1, place, cfg,
+                                tp, cfg.sliding_window)
+    return attn_out(p, att, cfg, tp)
+
+
+def decode_slot(pos, place: KVPlace, window: int):
+    """The global cache slot of each row's new token: the ring's pos %
+    slots under a window, else pos (the last slot once full)."""
+    if window:
+        return (pos % place.slots).long()
+    return torch.clamp(pos, max=place.slots - 1).long()
+
+
+@torch.inference_mode()
+def mesh_prefill(view, tokens, cfg: ModelConfig, sm: ServeMesh):
+    """The dense and MoE families' prefill over a mesh
+    (`transformer.prefill` laid out as `ServeMesh` says): tokens (b, S),
+    this rank's rows, -> (the last position's vocab-sharded logits (b, 1,
+    V_pad/m) f32, this rank's blocks of the cache). The stream is
+    replicated over `model` (the reference's `seq_shard=False`), so any
+    prompt length serves."""
+    b, s = tokens.shape
+    w = cfg.sliding_window
+    tp = sm.tp
+    defs = transformer.cache_defs(cfg, sm.batch, min(s, w) if w
+                                  else s + transformer.PREFILL_EXTRA)
+    cache = sm.new_cache(defs, tokens.device)
+    cache["length"].fill_(s)
+    place = sm.place("kv", defs["k"])
+    x = serve_embed(view.embed, tokens, cfg, tp)
+    tables = transformer.rope_tables(torch.arange(
+        s, dtype=torch.int32, device=x.device), cfg)
+    for i, lp in enumerate(view.layers):
+        h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
+        att, k, v = serve_attention(lp.attn, h, cfg, tables, tp)
+        x = x + att
+        x = x + serve_ffn(lp.mlp, layers.rms_norm(x, lp.ln2, cfg.norm_eps),
+                          cfg, sm)
+        for name, t in (("k", k), ("v", v)):
+            blk = prefill_kv_block(t, place, cfg, tp, w)
+            cache[name][i, :, :blk.shape[1]] = blk
+    return serve_logits(view, x[:, -1:], cfg, tp), cache
+
+
+@torch.inference_mode()
+def mesh_decode_step(view, cache: dict, tokens, cfg: ModelConfig,
+                     sm: ServeMesh):
+    """One decode step over a mesh, tokens (b, 1) of this rank's rows;
+    its cache blocks updated IN PLACE. Returns (vocab-sharded logits (b,
+    1, V_pad/m) f32, cache)."""
+    tp, place = sm.tp, sm.kv["kv"]
+    pos = cache["length"]
+    x = serve_embed(view.embed, tokens, cfg, tp)
+    slot = decode_slot(pos, place, cfg.sliding_window)
+    tables = transformer.rope_tables(pos[:, None], cfg)
+    for i, lp in enumerate(view.layers):
+        h = layers.rms_norm(x, lp.ln1, cfg.norm_eps)
+        x = x + decode_attention_layer(lp.attn, h, cache["k"][i],
+                                       cache["v"][i], pos, slot, tables,
+                                       place, cfg, tp)
+        x = x + serve_ffn(lp.mlp, layers.rms_norm(x, lp.ln2, cfg.norm_eps),
+                          cfg, sm)
+    logits = serve_logits(view, x, cfg, tp)
+    cache["length"] += 1
+    return logits, cache

@@ -31,6 +31,11 @@ class ArchSpec:
     tp_forward: Callable          # (view, batch, cfg, parallel, tp) ->
     #                               (vocab-sharded logits, aux) over
     #                               `model` ranks (`models.parallel`)
+    mesh_prefill: Callable        # (view, batch, cfg, sm) -> (vocab-sharded
+    #                               logits, this rank's cache blocks) over
+    #                               a serving mesh (`parallel.ServeMesh`)
+    mesh_decode_step: Callable    # (view, cache, tokens, cfg, sm) ->
+    #                               (vocab-sharded logits, cache)
 
 
 def _on_tokens(fn):
@@ -46,18 +51,26 @@ _FAMILY = {
                   forward=_on_tokens(transformer.forward),
                   prefill=_on_tokens(transformer.prefill),
                   decode_step=transformer.decode_step,
-                  tp_forward=_on_tokens(parallel.tp_forward)),
+                  tp_forward=_on_tokens(parallel.tp_forward),
+                  mesh_prefill=_on_tokens(parallel.mesh_prefill),
+                  mesh_decode_step=parallel.mesh_decode_step),
     "hybrid": dict(model=mamba.Zamba, forward=_on_tokens(mamba.forward),
                    prefill=_on_tokens(mamba.prefill),
                    decode_step=mamba.decode_step,
-                   tp_forward=_on_tokens(mamba.tp_forward)),
+                   tp_forward=_on_tokens(mamba.tp_forward),
+                   mesh_prefill=_on_tokens(mamba.mesh_prefill),
+                   mesh_decode_step=mamba.mesh_decode_step),
     "ssm": dict(model=xlstm.XLSTM, forward=_on_tokens(xlstm.forward),
                 prefill=_on_tokens(xlstm.prefill),
                 decode_step=xlstm.decode_step,
-                tp_forward=_on_tokens(xlstm.tp_forward)),
+                tp_forward=_on_tokens(xlstm.tp_forward),
+                mesh_prefill=_on_tokens(xlstm.mesh_prefill),
+                mesh_decode_step=xlstm.mesh_decode_step),
     "encdec": dict(model=encdec.EncDec, forward=encdec.forward,
                    prefill=encdec.prefill, decode_step=encdec.decode_step,
-                   tp_forward=encdec.tp_forward),
+                   tp_forward=encdec.tp_forward,
+                   mesh_prefill=encdec.mesh_prefill,
+                   mesh_decode_step=encdec.mesh_decode_step),
 }
 _FAMILY["moe"] = _FAMILY["dense"]
 _FAMILY["vlm"] = _FAMILY["dense"]

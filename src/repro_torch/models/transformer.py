@@ -44,6 +44,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common, layers, moe
@@ -121,20 +122,31 @@ def stack_defs(defs: dict, n: int) -> dict:
             for k, v in defs.items()}
 
 
-def new_cache(defs: dict, device) -> dict:
-    """Zero tensors of a cache's (shape, dtype) defs."""
-    return {name: torch.zeros(shape, dtype=dtype, device=device)
-            for name, (shape, dtype) in defs.items()}
+def new_cache(defs, device, shapes=None):
+    """Zero tensors of a cache's tree of `sharding.LeafDef`s, of their
+    shapes or, over a mesh, of a rank's block `shapes` (the same tree)."""
+    if isinstance(defs, shd.LeafDef):
+        return torch.zeros(defs.shape if shapes is None else shapes,
+                           dtype=getattr(torch, defs.dtype), device=device)
+    if isinstance(defs, (list, tuple)):
+        return [new_cache(d, device, None if shapes is None else s)
+                for d, s in zip(defs, shapes or defs, strict=True)]
+    return {k: new_cache(d, device, None if shapes is None else shapes[k])
+            for k, d in defs.items()}
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """KV cache shapes and dtypes: k and v (L, B, slots, KH, hd), slots =
-    max_len, or min(max_len, W) under a sliding window W."""
+    """The KV cache's `sharding.LeafDef`s: k and v (L, B, slots, KH, hd)
+    in `cfg.dtype`, slots = max_len, or min(max_len, W) under a sliding
+    window W; `length` (B,) int32. Their logical axes are the
+    reference's (`sharding.kv_cache_logical`)."""
     w = cfg.sliding_window
     slots = min(max_len, w) if w else max_len
-    kv = ((cfg.num_layers, batch, slots, cfg.num_kv_heads,
-           cfg.resolved_head_dim), common.act_dtype(cfg))
-    return {"k": kv, "v": kv, "length": ((batch,), torch.int32)}
+    kv = shd.LeafDef((cfg.num_layers, batch, slots, cfg.num_kv_heads,
+                      cfg.resolved_head_dim), cfg.dtype,
+                     shd.kv_cache_logical(cfg.num_kv_heads))
+    return {"k": kv, "v": kv,
+            "length": shd.LeafDef((batch,), "int32", ("batch",))}
 
 
 def rope_tables(positions, cfg: ModelConfig):

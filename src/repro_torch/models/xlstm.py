@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device
 from repro_torch.core import fsdp
@@ -405,6 +406,32 @@ def tp_forward(view, tokens: torch.Tensor, cfg: ModelConfig,
         torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def cache_defs(cfg: ModelConfig, batch: int) -> dict:
+    """The cache's `sharding.LeafDef`s, the reference's
+    (`xlstm_cache_defs`): an mLSTM block's conv (B, K - 1, d_inner) in
+    `cfg.dtype` by `ssm_inner`, S (B, H, dh, dh) and n (B, H, dh) f32 by
+    `heads`; an sLSTM block's c, n, m, h (B, H, D / H) f32 by `heads`;
+    length (B,)."""
+    di, h, dh = _mdims(cfg)
+    blocks = []
+    for i in range(cfg.num_layers):
+        if _is_slstm(cfg, i):
+            st = shd.LeafDef((batch, cfg.num_heads,
+                              cfg.d_model // cfg.num_heads), "float32",
+                             ("batch", "heads", None))
+            blocks.append({"slstm": {"c": st, "n": st, "m": st, "h": st}})
+        else:
+            blocks.append({"mlstm": {
+                "conv": shd.LeafDef((batch, CONV_K - 1, di), cfg.dtype,
+                                    ("batch", None, "ssm_inner")),
+                "S": shd.LeafDef((batch, h, dh, dh), "float32",
+                                 ("batch", "heads", None, None)),
+                "n": shd.LeafDef((batch, h, dh), "float32",
+                                 ("batch", "heads", None))}})
+    return {"blocks": blocks,
+            "length": shd.LeafDef((batch,), "int32", ("batch",))}
+
+
 @torch.inference_mode()
 def prefill(model: XLSTM, tokens: torch.Tensor, cfg: ModelConfig):
     """tokens (B, S) int -> (last-token logits (B, 1, V_pad) f32, cache)."""
@@ -447,5 +474,193 @@ def decode_step(model: XLSTM, cache: dict, tokens: torch.Tensor,
             bc["mlstm"] = {"conv": conv, "S": S, "n": n}
     x = layers.rms_norm(x, model.ln_f, cfg.norm_eps)
     logits = common.lm_head(model.unembed_table(), x, cfg)
+    cache["length"] += 1
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# serving over a mesh
+# ---------------------------------------------------------------------------
+
+
+def _whole(p):
+    """A block's leaves gathered over `model` too (its heads do not split:
+    the block runs whole on every rank)."""
+    return p.regather(("data", "model"))
+
+
+def serve_mlstm_block(p, x, cfg: ModelConfig, tp, conv_place):
+    """Prefill's mLSTM block of the replicated stream x (b, S, D) over
+    `model` -> (out, the rank's conv tail, S, n): where the heads split,
+    `wu`, `wz` and `conv` by channels, the q/k/v/gate products of the
+    rank's input rows reduce-scattered to its heads, each rank scanning
+    its heads, `out_norm` over split channels and `wo` row-parallel,
+    summed over `model`; else whole on its leaves gathered at use."""
+    di, h, dh = _mdims(cfg)
+    c0, cn = conv_place
+    if not tp.splits(h):
+        out, (conv, S, n) = mlstm_block(_whole(p), x, cfg,
+                                        return_state=True)
+        return out, conv[..., c0:c0 + cn], S, n
+    m = tp.size
+    b, s, _ = x.shape
+    dt = x.dtype
+    u, z = _up(p, x, cfg)
+    cu = F.silu(conv1d(u, p.conv).to(torch.float32)).to(dt)
+
+    def heads(part):          # partial (B, S, n) -> summed, own heads
+        return fsdp.reduce_scatter_dim(part, tp.group, 2)
+
+    shp = (b, s, h // m, dh)
+    q = heads(cu @ p.wq.to(dt)).reshape(shp)
+    k = heads(cu @ p.wk.to(dt)).reshape(shp)
+    v = heads(u @ p.wv.to(dt)).reshape(shp)
+    own = slice(tp.rank * (h // m), (tp.rank + 1) * (h // m))
+    i_pre = heads(common.dot_f32(cu, p.wi.to(dt)))
+    f_pre = heads(common.dot_f32(cu, p.wf.to(dt))) \
+        + p.f_bias[own].to(torch.float32)
+    igate = torch.exp(torch.clamp(i_pre, max=EXP_CLAMP))
+    k = k * (igate[..., None] / math.sqrt(dh)).to(k.dtype)
+    y, (S, n) = ssm_common.chunked_linear_attention(
+        q, k, v, F.logsigmoid(f_pre), chunk=min(128, s), normalize=True,
+        return_state=True)
+    return _sharded_mlstm_out(p, y.reshape(b, s, di // m).to(dt), z, x,
+                              cfg, tp), conv_tail(u), S, n
+
+
+def _sharded_mlstm_out(p, y, z, x, cfg: ModelConfig, tp):
+    """`_mlstm_out` of the rank's channels, `out_norm` over split channels,
+    `wo`'s output summed over `model`."""
+    dt = x.dtype
+    y = parallel.sharded_rms_norm(y, p.out_norm, cfg.norm_eps, tp,
+                                  _mdims(cfg)[0])
+    y = y * F.silu(z.to(torch.float32)).to(dt)
+    return x + tp.sum(y @ p.wo.to(dt))
+
+
+def serve_mlstm_decode(p, x, cfg: ModelConfig, tp, conv_buf, S, n,
+                       conv_place):
+    """Decode's mLSTM step over `model` on the rank's state blocks ->
+    (out, conv block, S, n), `mlstm_decode_step`'s products in the
+    activation dtype; head-parallel where the heads split, else whole
+    with the conv tail gathered at use and cut back."""
+    di, h, dh = _mdims(cfg)
+    c0, cn = conv_place
+    if not tp.splits(h):
+        if tp.splits(di):
+            conv_buf = fsdp.all_gather_dim(conv_buf, tp.group, 2)
+        out, conv, S, n = mlstm_decode_step(_whole(p), x, cfg, conv_buf, S,
+                                            n)
+        return out, conv[..., c0:c0 + cn], S, n
+    m = tp.size
+    b = x.shape[0]
+    dt = x.dtype
+    u, z = _up(p, x, cfg)
+    seqbuf = torch.cat([conv_buf, u], dim=1)
+    cu = F.silu((seqbuf.to(torch.float32)
+                 * p.conv.to(torch.float32)).sum(1)).to(dt)  # (B, di/m)
+
+    def heads(part):          # partial (B, n) -> summed, own heads
+        return fsdp.reduce_scatter_dim(part, tp.group, 1)
+
+    shp = (b, h // m, dh)
+    q = heads(cu @ p.wq.to(dt)).reshape(shp)
+    k = heads(cu @ p.wk.to(dt)).reshape(shp)
+    v = heads(u[:, 0] @ p.wv.to(dt)).reshape(shp)
+    own = slice(tp.rank * (h // m), (tp.rank + 1) * (h // m))
+    i_pre = heads(cu @ p.wi.to(dt))
+    f_pre = heads(cu @ p.wf.to(dt)) + p.f_bias[own].to(torch.float32)
+    igate = torch.exp(torch.clamp(i_pre.to(torch.float32), max=EXP_CLAMP))
+    k = k * (igate[..., None] / math.sqrt(dh)).to(k.dtype)
+    y, S, n = ssm_common.linear_attention_step(
+        S, q, k, v, F.logsigmoid(f_pre.to(torch.float32)), norm_state=n,
+        normalize=True)
+    out = _sharded_mlstm_out(p, y.reshape(b, 1, di // m).to(dt), z, x, cfg,
+                             tp)
+    return out, seqbuf[:, 1:], S, n
+
+
+def _slstm_out(p, hs, x, cfg: ModelConfig, tp):
+    """x + the sLSTM's MLP of its heads' outputs gathered over `model`
+    (hs (b, s, D/m) f32), ff-parallel and summed where ff splits."""
+    hs = fsdp.all_gather_dim(hs, tp.group, 2)
+    out = _slstm_ffn(p, hs, x.dtype, cfg)
+    return x + (tp.sum(out) if tp.splits((4 * cfg.d_model) // 3) else out)
+
+
+def serve_slstm_block(p, x, cfg: ModelConfig, tp):
+    """Prefill's sLSTM block over `model` -> (out, the rank's state (c, n,
+    m, h)): each rank runs its heads' recurrence where the heads split,
+    else the block whole on its leaves gathered at use."""
+    b, s, d = x.shape
+    h = cfg.num_heads
+    if not tp.splits(h):
+        return slstm_block(_whole(p), x, cfg, return_state=True)
+    hn = layers.rms_norm(x, p.norm, cfg.norm_eps)
+    z0 = torch.zeros((b, h // tp.size, d // h), dtype=torch.float32,
+                     device=x.device)
+    hs, state = _slstm_scan(p, hn, (z0, z0, torch.full_like(z0, -math.inf),
+                                    z0))
+    return _slstm_out(p, hs.reshape(b, s, -1), x, cfg, tp), state
+
+
+def serve_slstm_decode(p, x, cfg: ModelConfig, tp, state):
+    """Decode's sLSTM step over `model` on the rank's heads' state."""
+    if not tp.splits(cfg.num_heads):
+        return slstm_decode_step(_whole(p), x, cfg, state)
+    b = x.shape[0]
+    hn = layers.rms_norm(x, p.norm, cfg.norm_eps)
+    state = _slstm_cell(_recurrent_gates(p, _input_gates(p, hn)[0],
+                                         state[3]), state)
+    return _slstm_out(p, state[3].reshape(b, 1, -1), x, cfg, tp), state
+
+
+@torch.inference_mode()
+def mesh_prefill(view, tokens: torch.Tensor, cfg: ModelConfig, sm):
+    """xlstm's prefill over a serving mesh (`models.parallel.ServeMesh`):
+    tokens (b, S) of this rank's rows -> (vocab-sharded last logits, this
+    rank's cache blocks: the mLSTM conv by `ssm_inner`, every state by
+    `heads`)."""
+    b, s = tokens.shape
+    tp = sm.tp
+    sm.defs = defs = cache_defs(cfg, sm.batch)
+    x = parallel.serve_embed(view.embed, tokens, cfg, tp)
+    blocks = []
+    for bp, bd in zip(view.blocks, defs["blocks"], strict=True):
+        if bp.kind == SLSTMBlock.kind:
+            x, (c, n, m, h) = serve_slstm_block(bp, x, cfg, tp)
+            blocks.append({"slstm": {"c": c, "n": n,
+                                     "m": torch.clamp(m, min=-1e30),
+                                     "h": h}})
+        else:
+            conv_place = sm.kv["conv"] = sm.block(bd["mlstm"]["conv"])[2]
+            x, conv, S, n = serve_mlstm_block(bp, x, cfg, tp, conv_place)
+            blocks.append({"mlstm": {"conv": conv, "S": S, "n": n}})
+    length = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    return parallel.serve_logits(view, x[:, -1:], cfg, tp), \
+        {"blocks": blocks, "length": length}
+
+
+@torch.inference_mode()
+def mesh_decode_step(view, cache: dict, tokens: torch.Tensor,
+                     cfg: ModelConfig, sm):
+    """One decode step over a serving mesh, tokens (b, 1) of this rank's
+    rows; each block's entries of the cache replaced. Returns
+    (vocab-sharded logits, cache)."""
+    tp = sm.tp
+    x = parallel.serve_embed(view.embed, tokens, cfg, tp)
+    for bp, bc in zip(view.blocks, cache["blocks"], strict=True):
+        if bp.kind == SLSTMBlock.kind:
+            st = bc["slstm"]
+            x, state = serve_slstm_decode(
+                bp, x, cfg, tp, (st["c"], st["n"], st["m"], st["h"]))
+            bc["slstm"] = dict(zip("cnmh", state, strict=True))
+        else:
+            st = bc["mlstm"]
+            x, conv, S, n = serve_mlstm_decode(bp, x, cfg, tp, st["conv"],
+                                               st["S"], st["n"],
+                                               sm.kv["conv"])
+            bc["mlstm"] = {"conv": conv, "S": S, "n": n}
+    logits = parallel.serve_logits(view, x, cfg, tp)
     cache["length"] += 1
     return logits, cache

@@ -223,22 +223,46 @@ def param_defs(spec, cfg, model=None) -> dict[str, LeafDef]:
             for name, p in model.named_parameters()}
 
 
-def tree_specs(defs, mesh, rules=None):
-    """A tree (dicts) of LeafDefs -> the same tree of specs."""
+def tree_map(fn, defs):
+    """`fn` of every LeafDef of a tree of dicts, lists and tuples (an
+    xlstm cache's blocks), in the same tree."""
     if isinstance(defs, LeafDef):
-        return defs.spec(mesh, rules)
-    return {k: tree_specs(v, mesh, rules) for k, v in defs.items()}
+        return fn(defs)
+    if isinstance(defs, (list, tuple)):
+        return type(defs)(tree_map(fn, v) for v in defs)
+    return {k: tree_map(fn, v) for k, v in defs.items()}
+
+
+def tree_leaves(defs) -> list:
+    """The LeafDefs of a tree, in its order."""
+    out: list = []
+    tree_map(out.append, defs)
+    return out
+
+
+def tree_specs(defs, mesh, rules=None):
+    """A tree of LeafDefs -> the same tree of specs."""
+    return tree_map(lambda d: d.spec(mesh, rules), defs)
 
 
 def tree_shard_shapes(defs, mesh, rules=None):
     """A tree of LeafDefs -> the same tree of per-rank block shapes."""
-    if isinstance(defs, LeafDef):
-        return shard_shape(defs.shape, defs.spec(mesh, rules), mesh)
-    return {k: tree_shard_shapes(v, mesh, rules) for k, v in defs.items()}
+    return tree_map(lambda d: shard_shape(d.shape, d.spec(mesh, rules),
+                                          mesh), defs)
 
 
 def tree_nbytes(defs, mesh=None, rules=None) -> int:
     """Bytes of one rank's blocks of every leaf of a tree of LeafDefs."""
-    if isinstance(defs, LeafDef):
-        return defs.nbytes(mesh, rules)
-    return sum(tree_nbytes(v, mesh, rules) for v in defs.values())
+    return sum(d.nbytes(mesh, rules) for d in tree_leaves(defs))
+
+
+def kv_cache_logical(num_kv_heads: int, lead: str | None = "layers"
+                     ) -> AxisNames:
+    """The logical axes of a K/V cache (lead, B, slots, KH, hd), the
+    reference's rule (`repro.models.transformer.cache_defs`): the KV
+    heads over `model` where 16 divides them (its production meshes'
+    width), else the slots (`kv_seq`), so that a GQA cache of 1, 4 or 8
+    heads is not replicated."""
+    if num_kv_heads % 16 == 0:
+        return (lead, "batch", None, "kv_heads", None)
+    return (lead, "batch", "kv_seq", None, None)

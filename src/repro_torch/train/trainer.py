@@ -116,7 +116,7 @@ def batch_shardings(batch_defs, mesh, rules=None):
 # ---------------------------------------------------------------------------
 
 
-def _draw(p_shape, generator: torch.Generator) -> torch.Tensor:
+def draw_leaf(p_shape, generator: torch.Generator) -> torch.Tensor:
     """`common.init_params`' draw for a leaf of `p_shape`."""
     if len(p_shape) == 1:
         return torch.ones(p_shape, dtype=torch.float32,
@@ -127,18 +127,21 @@ def _draw(p_shape, generator: torch.Generator) -> torch.Tensor:
 
 @torch.no_grad()
 def sharded_model(spec, cfg: ModelConfig, mesh, device, fill: Callable,
-                  layout: ParamLayout | None = None) -> nn.Module:
-    """`cfg`'s training model whose parameters are this rank's blocks on
+                  layout: ParamLayout | None = None,
+                  train: bool = True) -> nn.Module:
+    """`cfg`'s training model (with `train=False` its serving model: the
+    serving dtypes, no grad) whose parameters are this rank's blocks on
     `device`, each cut from `fill(name, full_shape)` (a whole leaf, made
     one leaf at a time); the model carries its layout."""
     layout = layout or ParamLayout(spec, cfg, mesh)
     device = resolve_device(device)
-    model = shd.meta_model(spec, cfg)
+    model = spec.model(cfg, device="meta", train=train)
     for name, p in list(model.named_parameters()):
         owner, _, leaf = name.rpartition(".")
         block = layout.shard(name, fill(name, tuple(p.shape)))
         model.get_submodule(owner)._parameters[leaf] = nn.Parameter(
-            block.to(device=device, dtype=p.dtype, copy=True))
+            block.to(device=device, dtype=p.dtype, copy=True),
+            requires_grad=train)
     model.layout = layout
     return model
 
@@ -155,7 +158,7 @@ def init_state(spec, cfg: ModelConfig, train_cfg: TrainConfig,
                                               train=True), generator)
     else:
         model = sharded_model(spec, cfg, mesh, device,
-                              lambda name, shape: _draw(shape, generator))
+                              lambda name, shape: draw_leaf(shape, generator))
     return _with_moments(model, cfg, train_cfg, parallel, mesh)
 
 

@@ -1114,6 +1114,69 @@ def test_one_rank_nccl_mesh_step_equals_no_mesh(cuda, tmp_path):
         assert torch.equal(runs["mesh"][1][name], p), name
 
 
+# small widths that the kernel takes (head dim 64 or 80, bf16), the
+# serving families of each layout over `model`
+_MESH_SERVE_CASES = {
+    "yi-6b": dict(d_model=256, num_heads=4, num_kv_heads=2, head_dim=64),
+    "phi3.5-moe-42b-a6.6b": dict(d_model=256, num_heads=4, num_kv_heads=2,
+                                 head_dim=64),
+    "zamba2-2.7b": _FAMILY_CASES["zamba2-2.7b"][0],
+    "whisper-small": _FAMILY_CASES["whisper-small"][0],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(_MESH_SERVE_CASES))
+def test_one_rank_nccl_mesh_serving_equals_no_mesh(cuda, arch, tmp_path):
+    """Prefill and 4 greedy steps in bf16 through an NCCL mesh of one rank
+    (data 1, model 1: the weights' gathers, the K/V all-to-all, the
+    decode combine and the vocab-parallel argmax over the one-rank
+    groups) and through the one-card path on the same weights: the
+    tokens bit for bit, flash_attention launched as often (chip_smoke's
+    phase 18 compares the logits at full width)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common, registry
+    from repro_torch.train import serve, trainer
+
+    spec = registry.get_spec(arch)
+    cfg = dataclasses.replace(registry.smoke_config(arch), dtype="bfloat16",
+                              **_MESH_SERVE_CASES[arch])
+    model = common.init_params(spec.model(cfg, device=cuda),
+                               torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(2)
+    host = {"tokens": rng.integers(0, cfg.vocab_size, size=(2, 48)).astype(
+        np.int32)}
+    if cfg.family == "encdec":
+        host["frames"] = rng.normal(size=(2, 80, cfg.d_model)).astype(
+            np.float32)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path}/store", rank=0,
+        world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_host_mesh(1, 1)
+        whole = dict(model.named_parameters())
+        blocks = trainer.sharded_model(spec, cfg, mesh, cuda,
+                                       lambda name, shape: whole[name],
+                                       train=False)
+        runs = {}
+        for tag, m, kw in (("plain", model, {}),
+                           ("mesh", blocks, {"mesh": mesh})):
+            before = ops.launch_counts()["flash_attention"]
+            toks = serve.greedy_decode(spec, cfg, m, host, 5, device=cuda,
+                                       **kw)
+            runs[tag] = (toks.cpu(),
+                         ops.launch_counts()["flash_attention"] - before)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(runs["mesh"][0], runs["plain"][0])
+    assert runs["mesh"][1] == runs["plain"][1]
+
+
 @pytest.mark.gpu
 def test_quantize_codes_and_scales_card_equals_cpu(cuda):
     """`compression.quantize` on the card gives the CPU's codes and scales
