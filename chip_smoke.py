@@ -295,6 +295,30 @@ Phases, in order; any failure exits non-zero:
               head dim of 16 is no kernel's, and the window takes none)
               under torchrun --nproc-per-node 1 and as one process, the
               same tokens md5
+  19. audit   the wire auditor and the dry run (last): (a) the audit's
+              engine checks (`analysis.audit.audit_engine`) for all nine
+              strategies at configuration 1's widths (2^27 features,
+              K = 64, one batch of 4096 of its corpus) on an NCCL group
+              of one rank, mesh (data 1, model 1): no finding, the
+              kernels of each recorded train_step counted by name
+              (AUDIT_LAUNCHES), a twin state that took the same steps
+              without the recorder bit-identical to the recorded one,
+              host µs of a collective with and without the recorder;
+              (b) the analytic audit (nine strategies x 1dev, pod8,
+              multipod, production on the `fake` backend of this
+              machine's torch): no finding, its seconds; (c)
+              configuration 19's dry run (`launch.dryrun.dry_step`, fake
+              tensors at (data 1, model 1)) against the same step on the
+              card: argument bytes equal to the state and batch the card
+              holds, the collective schedule (op, count, bytes) equal to
+              what the recorder sees around the card's NCCL step, the
+              dry run's peak over the card's max_memory_allocated
+              printed; then a prefill cell (yi-6b at 4 layers, 2 x
+              32768, its attention the flash_attention kernel's
+              footprint) against `mesh_prefill` on the card: argument
+              bytes and collective schedule equal, the kernel launched
+              once a layer, the peak ratio within AUDIT_PEAK_BAND; (d)
+              the strategies' wire table of `launch.dryrun --strategies`
 Then one `{"kernels": [...]}` line, and last the device line
 `{"ok": true, "device": {...}}`. Measurements also go to
 results/chip_smoke.json.
@@ -5445,6 +5469,318 @@ def phase_serve_mesh(torch, dev, smi, spec, cfg, held, served, results):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 19. audit: the wire auditor's engine checks and the dry run on the card
+# ---------------------------------------------------------------------------
+
+# the kernels of one recorded train_step at one rank, by strategy: every
+# step's sigmoid_grad; segment_sum_sorted under combine_grads,
+# owner_accumulate and hot_grads (the dense reduces of allgather,
+# psum_scatter and compressed_reduce have no combiner); select_pack in
+# topk_reduce only (hier_a2a+topk is hier_a2a at one pod)
+AUDIT_LAUNCHES = {name: {"sigmoid_grad": 1,
+                         "segment_sum_sorted": 2 if name in (
+                             "allgather", "psum_scatter",
+                             "compressed_reduce") else 3,
+                         "select_pack": int(name == "topk_reduce"),
+                         "flash_attention": 0}
+                  for name in ("a2a", "allgather", "compressed_reduce",
+                               "hier_a2a", "hier_a2a+int8", "hier_a2a+topk",
+                               "overlap_a2a", "psum_scatter", "topk_reduce")}
+AUDIT_PREFILL_ROWS, AUDIT_PREFILL_SEQ = 2, 32768   # (c)'s prefill cell
+AUDIT_PEAK_BAND = (0.9, 1.1)   # the prefill's dry-run peak over the card's
+
+
+def _audit_engine(torch, dev):
+    """(a) the audit's engine checks for all nine strategies at
+    configuration 1's widths (2^27 features, K = 64, one batch of 4096
+    from its corpus) on an NCCL group of one rank: no finding, the
+    kernels of the recorded train_step counted by name, and a twin state
+    that took the same steps without the recorder bit-identical to the
+    recorded one; then host µs of a collective with and without the
+    recorder."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import audit, trace
+    from repro_torch.api.strategies import _all_to_all
+    from repro_torch.configs.base import DPMRConfig
+    from repro_torch.core import dpmr
+    from repro_torch.launch.mesh import make_host_mesh
+
+    names = sorted(AUDIT_LAUNCHES)
+    batch = make_batches(dict(num_features=1 << LOG2_F,
+                              features_per_sample=K,
+                              signal_features=4096), 1)[0]
+    out = {}
+    t = time.perf_counter()
+    findings, report = audit.audit_engine(
+        names, device=dev, num_features=1 << LOG2_F,
+        features_per_sample=K, batch=batch)
+    torch.cuda.synchronize()
+    out["engine_s"] = time.perf_counter() - t
+    log(f"[audit] (a) engine checks of {len(names)} strategies at "
+        f"2^{LOG2_F} x {K}, batch {BATCH}: {len(findings)} findings, "
+        f"{len(report['checks'])} checks passed, {out['engine_s']:.1f} s")
+    for f in findings:
+        log(f"[audit] FINDING {f}")
+    require(not findings, f"the engine checks found {findings}")
+    for name in names:
+        got = {k: report["launches"][name][k] for k in AUDIT_LAUNCHES[name]}
+        log(f"[audit] (a) {name}: launches in the recorded train_step "
+            f"{got}; its collectives {report['collectives'][name]}")
+        require(got == AUDIT_LAUNCHES[name],
+                f"{name} launched {got}, not {AUDIT_LAUNCHES[name]}")
+    same = report["recorder_neutral"]
+    log(f"[audit] (a) the recorded state against a twin that took the "
+        f"same steps without the recorder, bit-identical: {same}")
+    require(same == {name: True for name in names},
+            f"the recorder changed a step: {same}")
+    out["launches"] = report["launches"]
+    out["collectives"] = report["collectives"]
+    out["bit_identical"] = same
+
+    _nccl_one_rank(torch, "nccl_store_audit")
+    try:
+        mesh = make_host_mesh(1, 1)
+        ctx = dpmr.make_step_fns(
+            DPMRConfig(num_features=1 << LOG2_F, max_features_per_sample=K,
+                       distribution="a2a"), BATCH, mesh=mesh).ctx
+        x = torch.zeros((1, ctx.capacity), dtype=torch.int32, device=dev)
+        rec = trace.Recorder(mesh)
+        host = {}
+        for tag in ("plain", "recorded"):
+            _all_to_all(x, ctx)
+            torch.cuda.synchronize()
+            n = 500
+            t = time.perf_counter()
+            if tag == "recorded":
+                with rec:
+                    for _ in range(n):
+                        _all_to_all(x, ctx)
+            else:
+                for _ in range(n):
+                    _all_to_all(x, ctx)
+            torch.cuda.synchronize()
+            host[tag] = (time.perf_counter() - t) * 1e6 / n
+        require(len(rec.ops) == 500, f"the recorder kept {len(rec.ops)}")
+        log(f"[audit] (a) host µs a collective (_all_to_all of (1, "
+            f"{ctx.capacity}) int32 through the group, 500 calls): "
+            f"{host['plain']:.2f} without the recorder, "
+            f"{host['recorded']:.2f} with it")
+        out["collective_host_us"] = host
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _audit_analytic():
+    """(b) the analytic audit: nine strategies x four contexts on the
+    `fake` backend of this machine's torch."""
+    import torch
+
+    from repro_torch.analysis import audit
+
+    t = time.perf_counter()
+    report = audit.audit_registry(engine_checks=False)
+    secs = time.perf_counter() - t
+    log(f"[audit] (b) analytic audit on torch {torch.__version__}: "
+        f"{len(report['strategies'])} strategies x "
+        f"{len(audit.build_contexts())} contexts, "
+        f"{report['num_findings']} findings, {secs:.2f} s")
+    require(report["ok"], f"the analytic audit found {report['findings']}")
+    return {"seconds": secs, "num_findings": report["num_findings"],
+            "torch": torch.__version__}
+
+
+def _audit_dryrun(torch, dev):
+    """(c) the dry run of configuration 19 (yi-6b at full width cut to 4
+    layers, adamw, remat full, batch 4 x 4096, mesh (data 1, model 1))
+    against the same step run on the card through an NCCL group of one
+    rank: argument bytes equal to the state and batch the card holds,
+    the collective schedule (op, count, bytes) equal to what the
+    recorder sees around the card's step, and the dry run's peak beside
+    the card's max_memory_allocated (a ratio, printed)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis import trace
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig, \
+        TrainConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import trainer
+
+    spec, cfg = train_config(TRAIN_LAYERS)
+    spec = dataclasses.replace(spec, cfg=cfg)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                     total_steps=TRAIN_STEPS, optimizer="adamw")
+    pc = ParallelConfig(remat="full")
+    shape = ShapeConfig("configuration 19", TRAIN_SEQ, TRAIN_BATCH, "train")
+    geometry = {"data": 1, "model": 1}
+    t = time.perf_counter()
+    dry = dryrun.dry_step(spec, shape, geometry, pc, tc)
+    dry_s = time.perf_counter() - t
+    mem = dry["memory_analysis"]
+    log(f"[audit] (c) dry run of configuration 19 at {geometry}: "
+        f"{dry_s:.1f} s ({dry['ops']} operations on fake tensors), "
+        f"memory {mem}, flops {dry['flops']:.4e}, bytes accessed "
+        f"{dry['bytes_accessed']:.4e}, collectives "
+        f"{dry['collective_summary']}")
+    _nccl_one_rank(torch, "nccl_store_audit_dry")
+    try:
+        mesh = make_host_mesh(1, 1)
+        torch.cuda.empty_cache()
+        state = _train_state(torch, spec, cfg, tc, pc, dev, mesh)
+        batch = next(iter(_lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 1, dev)))
+        held = sum(t.numel() * t.element_size()
+                   for t in dryrun._leaves([state, batch]))
+        step = trainer.make_train_step(spec, cfg, tc, pc, mesh)
+        rec = trace.Recorder(mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with rec:
+            step(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        card = dryrun.collective_summary(
+            dryrun._collective_rows(rec.ops, geometry))
+        del state, batch
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    ratio = mem["peak_memory_in_bytes"] / peak
+    log(f"[audit] (c) argument bytes: dry run "
+        f"{mem['argument_size_in_bytes']}, the card's state and batch "
+        f"{held}; collectives on the card {card}")
+    log(f"[audit] (c) peak: dry run {mem['peak_memory_in_bytes']} B, the "
+        f"card's max_memory_allocated {peak} B, ratio {ratio:.4f} (the dry "
+        f"run leaves out {dryrun.NOT_COUNTED})")
+    require(mem["argument_size_in_bytes"] == held,
+            "the dry run's argument bytes are not the card's")
+    require(card == dry["collective_summary"],
+            "the dry run's collective schedule is not the card's")
+    return {"dry": {k: v for k, v in dry.items() if k != "collectives"},
+            "dry_s": dry_s, "held_bytes": held, "card_peak": peak,
+            "peak_ratio": ratio, "card_collectives": card}
+
+
+def _audit_dryrun_prefill(torch, dev):
+    """(c) the dry run of a prefill cell (yi-6b at full width cut to
+    TRAIN_LAYERS, AUDIT_PREFILL_ROWS x AUDIT_PREFILL_SEQ, mesh (data 1,
+    model 1), its attention the flash_attention kernel's footprint)
+    against the same `mesh_prefill` on the card through an NCCL group of
+    one rank: argument bytes equal to the parameters and tokens the card
+    holds, the collective schedule equal to the card's, and the dry
+    run's peak over the card's max_memory_allocated (less what was
+    allocated before the model) within AUDIT_PEAK_BAND."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis import trace
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import parallel
+
+    spec, cfg = train_config(TRAIN_LAYERS)
+    spec = dataclasses.replace(spec, cfg=cfg)
+    shape = ShapeConfig("prefill", AUDIT_PREFILL_SEQ, AUDIT_PREFILL_ROWS,
+                        "prefill")
+    geometry = {"data": 1, "model": 1}
+    t = time.perf_counter()
+    dry = dryrun.dry_step(spec, shape, geometry, ParallelConfig())
+    dry_s = time.perf_counter() - t
+    mem = dry["memory_analysis"]
+    log(f"[audit] (c) dry run of a prefill of {AUDIT_PREFILL_ROWS} x "
+        f"{AUDIT_PREFILL_SEQ} (yi-6b, {TRAIN_LAYERS} layers) at "
+        f"{geometry}: {dry_s:.1f} s ({dry['ops']} operations on fake "
+        f"tensors), memory {mem}, flops {dry['flops']:.4e}, bytes accessed "
+        f"{dry['bytes_accessed']:.4e}, collectives "
+        f"{dry['collective_summary']}")
+    _nccl_one_rank(torch, "nccl_store_audit_prefill")
+    try:
+        mesh = make_host_mesh(1, 1)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        _, _, model = yi_model(torch, dev, num_layers=TRAIN_LAYERS)
+        smodel = _sm_model(torch, spec, cfg, mesh, dev,
+                           dict(model.named_parameters()))
+        del model
+        torch.cuda.empty_cache()
+        batch = {"tokens": torch.from_numpy(prompts(
+            cfg, AUDIT_PREFILL_ROWS, AUDIT_PREFILL_SEQ)).to(dev)}
+        held = sum({id(t.untyped_storage()): t.untyped_storage().nbytes()
+                    for t in dryrun._leaves([smodel, batch])}.values())
+        view = parallel.ShardedView(smodel, smodel.layout)
+        sm = parallel.ServeMesh(smodel.layout, AUDIT_PREFILL_ROWS)
+        rec = trace.Recorder(mesh)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with rec:
+            logits, cache = spec.mesh_prefill(view, batch, cfg, sm)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = ops.launch_counts()
+        finite = bool(torch.isfinite(logits).all())
+        card = dryrun.collective_summary(
+            dryrun._collective_rows(rec.ops, geometry))
+        del logits, cache, smodel, view, batch
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    ratio = mem["peak_memory_in_bytes"] / peak
+    log(f"[audit] (c) prefill: argument bytes: dry run "
+        f"{mem['argument_size_in_bytes']}, the card's parameters and "
+        f"tokens {held}; launches {counts}; logits finite {finite}; "
+        f"collectives on the card {card}")
+    log(f"[audit] (c) prefill peak: dry run {mem['peak_memory_in_bytes']} "
+        f"B, the card's max_memory_allocated less the {base} B allocated "
+        f"before the model {peak} B, ratio {ratio:.4f} (band "
+        f"{AUDIT_PEAK_BAND})")
+    require(finite, "the card's prefill logits are not finite")
+    require(counts["flash_attention"] == TRAIN_LAYERS,
+            f"the card's prefill launched {counts}")
+    require(mem["argument_size_in_bytes"] == held,
+            "the prefill dry run's argument bytes are not the card's")
+    require(card == dry["collective_summary"],
+            "the prefill dry run's collective schedule is not the card's")
+    require(AUDIT_PEAK_BAND[0] <= ratio <= AUDIT_PEAK_BAND[1],
+            f"the prefill dry run's peak is {ratio:.4f} of the card's")
+    return {"dry": {k: v for k, v in dry.items() if k != "collectives"},
+            "dry_s": dry_s, "held_bytes": held, "card_peak": peak,
+            "base_bytes": base, "peak_ratio": ratio,
+            "card_collectives": card, "launches": counts}
+
+
+def phase_audit(torch, dev, smi):
+    """19. the wire auditor and the dry run (every number from this card,
+    `smi`, printed first)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import dryrun
+
+    log(f"[audit] {smi}")
+    t0 = time.perf_counter()
+    out = {"engine": _audit_engine(torch, dev),
+           "analytic": _audit_analytic(),
+           "dryrun": _audit_dryrun(torch, dev),
+           "dryrun_prefill": _audit_dryrun_prefill(torch, dev)}
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        out["strategy_wire"] = dryrun.run_strategy_wire()
+    log("[audit] (d) the strategies' wire on the production geometries "
+        "(python -m repro_torch.launch.dryrun --strategies):\n"
+        + table.getvalue().rstrip())
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[audit] phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -5500,6 +5836,7 @@ def main():
     del cfg9
     model_parallel = phase_model_parallel(torch, dev, smi, cfg11)
     del cfg11
+    audit = phase_audit(torch, dev, smi)
 
     kernels = [results[name] for name in ("sigmoid_grad",
                                           "segment_sum_sorted",
@@ -5516,7 +5853,8 @@ def main():
          "parity": parity, "sparse_serve": sparse_serve, "serve": served,
          "dense_parity": dense_parity, "train_dense": train_dense,
          "moe": moe, "families": families, "distribution": distribution,
-         "model_parallel": model_parallel, "serve_mesh": serve_mesh},
+         "model_parallel": model_parallel, "serve_mesh": serve_mesh,
+         "audit": audit},
         indent=1))
     log(smi)
     log(json.dumps({"kernels": kernels}))

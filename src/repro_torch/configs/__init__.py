@@ -7,9 +7,11 @@ sliding window), zamba2 (`hybrid`), xlstm (`ssm`) and whisper
 (`encdec`).
 """
 from repro_torch.configs.base import (
+    SHAPES,
     DPMRConfig,
     ModelConfig,
     ParallelConfig,
+    ShapeConfig,
     TrainConfig,
 )
 
@@ -40,5 +42,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "DPMRConfig", "ModelConfig", "ParallelConfig",
-           "TrainConfig", "get_config"]
+__all__ = ["ARCH_IDS", "SHAPES", "DPMRConfig", "ModelConfig",
+           "ParallelConfig", "ShapeConfig", "TrainConfig", "get_config"]

@@ -13,7 +13,8 @@ port serves and trains every family of the reference: `dense`, `vlm`,
 `moe` (experts, a sliding window), `hybrid` (zamba2), `ssm` (xlstm) and
 `encdec` (whisper).
 
-`ParallelConfig` and `TrainConfig` are copies of the reference's, field
+`ShapeConfig` and `SHAPES` are the reference's input-shape cells, which
+`launch.dryrun` sweeps. `ParallelConfig` and `TrainConfig` are copies of the reference's, field
 for field. The trainer reads `remat`, `microbatches` and `accum_dtype`;
 over a mesh also `attn_mode` ("cp": context-parallel attention over
 `model`) and `compress_pod_grads` (int8 gradients across `pod`), each
@@ -25,8 +26,8 @@ over layers. `sparse_embed` is read by neither package's trainer.
 The reference module's TPU hardware constants are deliberately not
 carried over. In their place stand the data-sheet figures of the card
 the port runs on, an NVIDIA H100 SXM, in one place: `chip_smoke.py`'s
-bounds read the memory rate and the peak rates, and `api/autotune.py`'s
-wire model the link speeds. The port's measured speeds come from runs on
+bounds read the memory rate and the peak rates, `api/autotune.py`'s
+wire model the link speeds, and `launch/dryrun.py` the memory size. The port's measured speeds come from runs on
 the card (see PERF.md).
 """
 from __future__ import annotations
@@ -40,6 +41,7 @@ H100_BF16_TC_FLOPS = 989e12       # bf16 tensor cores, dense
 H100_NVLINK_GBPS = 450.0          # NVLink 4 inside a host, one way a card
 H100_NDR_GBPS = 50.0              # one 400 Gb/s NDR port a card, between
 #                                   hosts
+H100_HBM_BYTES = 80 * 10 ** 9     # 80 GB of HBM3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,6 +184,24 @@ def _mamba_block_params(cfg: ModelConfig) -> int:
     n = cfg.ssm_state
     g = max(1, cfg.resolved_ssm_heads // 4)
     return d * 2 * di + di * d + 2 * g * n * d + di  # in/out proj + B,C proj + dt
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the dry run (the reference's)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

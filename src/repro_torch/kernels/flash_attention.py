@@ -22,10 +22,19 @@ of 128), a dense head dim, strides that are
 multiples of 8 and a 16-byte aligned base (what the kernel's TMA tensor
 maps take).
 `launches` counts launches.
+
+On fake tensors (`FakeTensorMode`, the dry run of `launch.dryrun`) the
+wrapper dispatches to the custom op `repro_torch::flash_attention`
+(`fake_op`): its fake implementation allocates only the (B, Sq, H, D)
+output, the kernel's footprint, where the plain version would build
+the S x S scores, and `flops` is its FLOP formula for
+`FlopCounterMode`: the pairs the mask lets through, as the kernel
+computes them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -41,6 +50,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, D); k, v: (B, Skv, KH, D) with H % KH == 0.
     Returns (B, Sq, H, D) in q's dtype, as `ref.flash_attention_ref`."""
     _check_shapes(q, k, v, causal)
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if isinstance(q, FakeTensor):
+        return fake_op()(q, k, v, causal)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
     global launches
@@ -59,6 +72,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     build.check(status, "flash_attention")
     launches += 1
     return out
+
+
+@functools.cache
+def fake_op():
+    """The custom op `repro_torch::flash_attention` (registered on first
+    use): on real tensors the wrapper; on fake tensors an empty output."""
+
+    @torch.library.custom_op("repro_torch::flash_attention",
+                             mutates_args=())
+    def op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> torch.Tensor:
+        return flash_attention(q, k, v, causal=causal)
+
+    @op.register_fake
+    def _(q, k, v, causal):
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+    return op
+
+
+def flops(q_shape, k_shape, v_shape, causal, *, out_shape=None) -> int:
+    """FLOPs of one call: 4 D a head and visible (query, key) pair (q.k
+    and p.v); with `causal`, query i sees keys j <= i + (Skv - Sq).
+    Takes the shapes, as `FlopCounterMode`'s `custom_mapping` passes
+    them."""
+    b, sq, h, d = q_shape
+    skv = k_shape[1]
+    pairs = sq * (skv - sq + 1) + sq * (sq - 1) // 2 if causal \
+        else sq * skv
+    return 4 * d * pairs * b * h
 
 
 def _check_shapes(q, k, v, causal) -> None:

@@ -6,14 +6,20 @@ Every family of the reference: `dense`, `vlm` and `moe` through
 (xlstm) through `models.xlstm` and `encdec` (whisper) through
 `models.encdec`. A batch is a dict: `tokens` (B, S), and for `encdec`
 `frames` (B, S_enc, D) too.
+
+`batch_defs` gives the inputs of a shape cell (`configs.SHAPES`) as
+`sharding.LeafDef`s, the reference's `input_specs` (`launch.dryrun`
+lays them out without allocating anything); `supported_shapes` and
+`skip_reason` are the reference's rule of which cells an arch runs.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections.abc import Callable
 
+from repro_torch import sharding as shd
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, mamba, parallel, transformer, xlstm
 
 
@@ -36,6 +42,10 @@ class ArchSpec:
     #                               a serving mesh (`parallel.ServeMesh`)
     mesh_decode_step: Callable    # (view, cache, tokens, cfg, sm) ->
     #                               (vocab-sharded logits, cache)
+    cache_defs: Callable          # (cfg, batch, max_len) -> the cache's
+    #                               LeafDefs
+    supported_shapes: tuple[str, ...] = ()
+    skip_reason: str = ""         # why some shapes are skipped
 
 
 def _on_tokens(fn):
@@ -46,6 +56,13 @@ def _on_tokens(fn):
     return call
 
 
+def _xlstm_cache_defs(cfg, batch, max_len):
+    return xlstm.cache_defs(cfg, batch)
+
+
+_FULL_ATTN = ("train_4k", "prefill_32k", "decode_32k")
+_ALL = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
 _FAMILY = {
     "dense": dict(model=transformer.Transformer,
                   forward=_on_tokens(transformer.forward),
@@ -53,24 +70,28 @@ _FAMILY = {
                   decode_step=transformer.decode_step,
                   tp_forward=_on_tokens(parallel.tp_forward),
                   mesh_prefill=_on_tokens(parallel.mesh_prefill),
-                  mesh_decode_step=parallel.mesh_decode_step),
+                  mesh_decode_step=parallel.mesh_decode_step,
+                  cache_defs=transformer.cache_defs),
     "hybrid": dict(model=mamba.Zamba, forward=_on_tokens(mamba.forward),
                    prefill=_on_tokens(mamba.prefill),
                    decode_step=mamba.decode_step,
                    tp_forward=_on_tokens(mamba.tp_forward),
                    mesh_prefill=_on_tokens(mamba.mesh_prefill),
-                   mesh_decode_step=mamba.mesh_decode_step),
+                   mesh_decode_step=mamba.mesh_decode_step,
+                   cache_defs=mamba.cache_defs),
     "ssm": dict(model=xlstm.XLSTM, forward=_on_tokens(xlstm.forward),
                 prefill=_on_tokens(xlstm.prefill),
                 decode_step=xlstm.decode_step,
                 tp_forward=_on_tokens(xlstm.tp_forward),
                 mesh_prefill=_on_tokens(xlstm.mesh_prefill),
-                mesh_decode_step=xlstm.mesh_decode_step),
+                mesh_decode_step=xlstm.mesh_decode_step,
+                cache_defs=_xlstm_cache_defs),
     "encdec": dict(model=encdec.EncDec, forward=encdec.forward,
                    prefill=encdec.prefill, decode_step=encdec.decode_step,
                    tp_forward=encdec.tp_forward,
                    mesh_prefill=encdec.mesh_prefill,
-                   mesh_decode_step=encdec.mesh_decode_step),
+                   mesh_decode_step=encdec.mesh_decode_step,
+                   cache_defs=encdec.cache_defs),
 }
 _FAMILY["moe"] = _FAMILY["dense"]
 _FAMILY["vlm"] = _FAMILY["dense"]
@@ -78,7 +99,58 @@ _FAMILY["vlm"] = _FAMILY["dense"]
 
 def get_spec(arch_id: str) -> ArchSpec:
     cfg = get_config(arch_id)
-    return ArchSpec(arch_id=arch_id, cfg=cfg, **_FAMILY[cfg.family])
+    if cfg.family in ("hybrid", "ssm"):
+        shapes, reason = _ALL, ""
+    elif cfg.sliding_window:
+        shapes, reason = _ALL, ""          # SWA: bounded cache at 500k
+    elif cfg.family == "encdec":
+        shapes = _FULL_ATTN
+        reason = "long_500k skipped: full attention, quadratic at 512k"
+    else:
+        shapes = _FULL_ATTN
+        reason = "long_500k skipped: pure full attention (dense KV cache)"
+    return ArchSpec(arch_id=arch_id, cfg=cfg, supported_shapes=shapes,
+                    skip_reason=reason, **_FAMILY[cfg.family])
+
+
+# ---------------------------------------------------------------------------
+# input specs per (arch x shape)
+# ---------------------------------------------------------------------------
+
+
+def train_batch_defs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    toks = shd.LeafDef((b, s), "int32", ("batch", None))
+    batch = {"tokens": toks,
+             "labels": shd.LeafDef((b, s), "int32", ("batch", None))}
+    if cfg.family == "encdec":
+        batch["frames"] = shd.LeafDef((b, s, cfg.d_model), cfg.dtype,
+                                      ("batch", None, None))
+    return batch
+
+
+def prefill_batch_defs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    batch = {"tokens": shd.LeafDef((b, s), "int32", ("batch", None))}
+    if cfg.family == "encdec":
+        batch["frames"] = shd.LeafDef((b, s, cfg.d_model), cfg.dtype,
+                                      ("batch", None, None))
+    return batch
+
+
+def decode_batch_defs(cfg: ModelConfig, shape: ShapeConfig,
+                      spec: ArchSpec) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    return {"tokens": shd.LeafDef((b, 1), "int32", ("batch", None)),
+            "cache": spec.cache_defs(cfg, b, s)}
+
+
+def batch_defs(spec: ArchSpec, shape: ShapeConfig) -> dict:
+    if shape.kind == "train":
+        return train_batch_defs(spec.cfg, shape)
+    if shape.kind == "prefill":
+        return prefill_batch_defs(spec.cfg, shape)
+    return decode_batch_defs(spec.cfg, shape, spec)
 
 
 def model_class(cfg: ModelConfig):

@@ -407,3 +407,46 @@ def near_update(got: dict, want: dict, before: dict, tol: float) -> None:
         update = float(np.max(np.abs(want[key] - before[key])))
         np.testing.assert_allclose(got[key], want[key], rtol=0,
                                    atol=tol * update, err_msg=key)
+
+
+def wire_rank(rank: int, store: str, out: str, mesh: dict, rows: int,
+              names) -> None:
+    """Inside a spawned rank of a (pod, data) mesh of 4: each strategy's
+    real `train_step` recorded by `repro_torch.analysis.trace.Recorder`;
+    rank 0 writes {name: its strategy-scoped collectives, its context's
+    counts, its declared bytes} as JSON to `out`."""
+    import json
+
+    import torch.distributed as dist
+
+    join_ranks(rank, 4, store)
+    from repro_torch.analysis import trace
+    from repro_torch.analysis.audit import engine_batch
+    from repro_torch.api.engine import put_batch
+    from repro_torch.api.strategies import get_strategy
+    from repro_torch.configs.base import DPMRConfig
+    from repro_torch.core import dpmr
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dmesh = make_host_mesh(data=mesh["data"], pods=mesh["pod"])
+    rb = put_batch(engine_batch(rows, 1 << 10, 8), "cpu", dmesh)
+    got = {}
+    for name in names:
+        cfg = DPMRConfig(num_features=1 << 10, max_features_per_sample=8,
+                         distribution=name)
+        # capacity at the mean: hier_a2a's inner capacity stays unclamped
+        fns = dpmr.make_step_fns(cfg, rows, mesh=dmesh, cap_factor=1.0)
+        state = dpmr.init_state(cfg, "cpu", mesh=dmesh)
+        rec = trace.Recorder(dmesh, tuple(mesh))
+        strat = get_strategy(name)
+        with trace.strategy_scope(rec, strat), rec:
+            fns.train_step(state, rb)
+        ctx = fns.ctx
+        got[name] = {"ops": [list(c) for c in rec.scoped("strategy")],
+                     "ctx": [ctx.num_shards, ctx.block_size, ctx.capacity,
+                             ctx.outer_shards, ctx.topk_frac],
+                     "declared": list(strat.bytes_per_device(ctx))}
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(got, f)
+    dist.destroy_process_group()
