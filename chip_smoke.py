@@ -1679,7 +1679,7 @@ def phase_dataplane(torch, dev, train, hot):
     (the module note, phase 5)."""
     import tempfile
 
-    from repro_torch import DPMREngine
+    from repro_torch import DPMREngine, obs
     from repro_torch.api import put_batch
     from repro_torch.core import dpmr
     from repro_torch.data import get_source, write_file_corpus
@@ -1739,8 +1739,10 @@ def phase_dataplane(torch, dev, train, hot):
         for kind in [*feeds, *reversed(feeds)]:
             eng = DPMREngine(cfg, hot_ids=hot)
             batches, loader = feeds[kind]()
+            obs.reset_counts("loader.")
             steps, total, counts, fetch, train_s = _fed_steps(
                 torch, eng, batches, STEPS)
+            waited = obs.counts("loader.")
             if ref is None:
                 ref = eng
             same = {f: _same_bits(torch, getattr(ref.state, f),
@@ -1751,10 +1753,9 @@ def phase_dataplane(torch, dev, train, hot):
                 "fetch_ms_median": statistics.median(fetch) * 1e3,
                 "train_ms_median": statistics.median(train_s) * 1e3,
                 "samples_per_s": STEPS * BATCH / total,
-                "wait_ms_median": statistics.median(loader.wait_s) * 1e3
-                if loader is not None and loader.wait_s else None,
-                "wait_ms_max": max(loader.wait_s) * 1e3
-                if loader is not None and loader.wait_s else None,
+                "wait_ms_mean": waited["loader.wait_s"]
+                / waited["loader.batches"] * 1e3
+                if waited.get("loader.batches") else None,
                 "launches": counts, "bit_identical": same})
             log(f"[dataplane] a2a {STEPS} steps fed {kind}: "
                 + json.dumps(runs[kind][-1]))
@@ -1794,10 +1795,9 @@ def phase_dataplane(torch, dev, train, hot):
                 f"{[round(r['fetch_ms_median'], 3) for r in rs]}, train "
                 f"{[round(r['train_ms_median'], 3) for r in rs]}), "
                 f"samples/s {[round(r['samples_per_s']) for r in rs]}"
-                + ("" if rs[0]["wait_ms_median"] is None else
-                   f", the consumer's wait a batch median "
-                   f"{[round(r['wait_ms_median'], 3) for r in rs]} ms, max "
-                   f"{[round(r['wait_ms_max'], 3) for r in rs]} ms"))
+                + ("" if rs[0]["wait_ms_mean"] is None else
+                   f", the consumer's wait a batch mean "
+                   f"{[round(r['wait_ms_mean'], 3) for r in rs]} ms"))
 
         out["placement"] = _placement_cost(torch, dev, src, train)
 
@@ -1808,12 +1808,15 @@ def phase_dataplane(torch, dev, train, hot):
         synth.batch(0)
         synth_s = time.perf_counter() - t
         zl = _loader(dev, synth)
+        obs.reset_counts("loader.")
         z_steps, z_total, _, _, _ = _fed_steps(torch, fed, zl.batches(4), 4)
+        waited = obs.counts("loader.")
         out["synthesising"] = {
             "step_ms_median": statistics.median(z_steps) * 1e3,
             "samples_per_s": 4 * BATCH / z_total,
             "host_synthesis_ms_a_batch": synth_s * 1e3,
-            "wait_ms_median": statistics.median(zl.wait_s) * 1e3}
+            "wait_ms_mean": waited["loader.wait_s"]
+            / waited["loader.batches"] * 1e3}
         log(f"[dataplane] a2a 4 steps fed by ShardedLoader(zipf_sparse, "
             f"prefetch=2), synthesising on the fly: step median "
             f"{out['synthesising']['step_ms_median']:.3f} ms; the host "

@@ -35,7 +35,9 @@ The engine runs on the card unless the caller asks for the CPU with
 carry on on the CPU. Step functions are built per global batch size and
 kept in a small LRU cache. The steps update the state's tensors in place
 (`core.dpmr`), so `save(block=False)` snapshots them on the stream before
-the next step can write them (`ckpt.checkpointer`).
+the next step can write them (`ckpt.checkpointer`). Each device value
+that `train_step`, `fit`, `learning_rate` and `host_step` read back to
+the host counts once in the `obs` counter `host_reads`.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.strategies import (
     _all_gather,
     get_strategy,
@@ -205,6 +208,7 @@ class DPMREngine:
         not); it reads the device only after `state` was replaced."""
         if self._step is None:
             self._step = int(self._state.step)
+            obs.count("host_reads")
         return self._step
 
     def _stepped(self) -> None:
@@ -237,6 +241,7 @@ class DPMREngine:
 
     def learning_rate(self) -> float:
         """Schedule value at the current step."""
+        obs.count("host_reads")
         return float(self._schedule(self.state.step))
 
     # -- data-plane resolution ----------------------------------------------
@@ -277,6 +282,7 @@ class DPMREngine:
         fns = self.step_fns(_global_rows(batch, "labels"))
         self._state, m = fns.train_step(self._state, self.put_batch(batch))
         self._stepped()
+        obs.count("host_reads", 3)
         return {"loss": float(m["loss"]), "accuracy": float(m["accuracy"]),
                 "overflow": int(m["overflow"])}
 
@@ -346,6 +352,7 @@ class DPMREngine:
                 acc_hot += gh
                 tot_loss += float(m["loss"])
                 tot_acc += float(m["accuracy"])
+                obs.count("host_reads", 2)
                 nb += 1
             if nb == 0:
                 raise ValueError(

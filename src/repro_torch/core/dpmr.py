@@ -31,6 +31,12 @@ features `cold` and `cold_acc` are 512 MiB each. Treat a state passed to
 `train_step` or `apply_update` as updated; `grad_step` and `predict` do
 not touch it.
 
+Spans and counters (`repro_torch.obs`): `train_step`, `grad_step` and
+`apply_update` run inside `dpmr.step`, each `optimize` call inside
+`optimizer.update`; `optimizer.rows_passed` counts the rows each
+`optimize` call passes over, `optimizer.rows_given_grad` (with
+`ops.owner_accumulate`'s) the hot slots that receive a gradient.
+
 The reference runs the step as one `shard_map` program over every mesh
 axis. Here each rank of a `DeviceMesh` (`launch.mesh`) runs the step on
 its own rows of the global batch and its own block of the table, and the
@@ -45,6 +51,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import DPMRConfig
 from repro_torch.core import hot_sharding
 from repro_torch.kernels import ops
@@ -168,8 +175,10 @@ def init_state(cfg: DPMRConfig, device, hot_ids=None,
                      zeros(strategy_carry_len(cfg, mesh)))
 
 
+@obs.spanned("optimizer.update")
 def optimize(cfg: DPMRConfig, theta, acc, grad, lr):
     """Algorithm 7 step 12: newPara = optimize(para, grad), in place."""
+    obs.count("optimizer.rows_passed", theta.numel())
     return optimizers.get_sparse_optimizer(cfg.optimizer).update(
         theta, acc, grad, lr, cfg)
 
@@ -238,6 +247,7 @@ def hot_grads(cfg, gflat, hot_slot, is_hot):
     """
     slot_s, totals, end = ops.sorted_run_totals(
         torch.where(is_hot, hot_slot, -1), gflat)
+    obs.count_device("optimizer.rows_given_grad", end)
     ghot = torch.zeros((cfg.max_hot + 1,), dtype=torch.float32,
                        device=gflat.device)
     ghot[torch.where(end, slot_s, cfg.max_hot).to(torch.int64)] = totals
@@ -361,6 +371,7 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *, mesh=None,
             ctx, probs, labels, nll, aux["overflow"])
 
     @torch.no_grad()
+    @obs.spanned("dpmr.step")
     def train_step(state: DPMRState, batch):
         grad_cold, grad_hot, carry, m = _fwd_grads(state, batch)
         if carry is not state.strat:    # a strategy may update it in place
@@ -372,6 +383,7 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *, mesh=None,
         return state, m
 
     @torch.no_grad()
+    @obs.spanned("dpmr.step")
     def grad_step(state: DPMRState, batch):
         # the carry is read-only here: fit() adds many grad_steps into one
         # update, so error feedback advances through train_step only
@@ -380,6 +392,7 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *, mesh=None,
         return grad_cold, grad_hot, m
 
     @torch.no_grad()
+    @obs.spanned("dpmr.step")
     def apply_update(state: DPMRState, grad_cold, grad_hot, lr: float):
         optimize(cfg, state.cold, state.cold_acc, grad_cold, lr)
         optimize(cfg, state.hot, state.hot_acc, grad_hot, lr)

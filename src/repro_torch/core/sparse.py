@@ -8,6 +8,9 @@ Pure per-device math with no collectives. Terminology maps to the paper:
   - `combine_grads`  = computeGradients' combiner (sum per feature before
                        the reduce-side shuffle).
 
+`route_build`, `owner_apply`, `route_return` and `combine_grads` run
+inside the `obs` spans `routing.<name>`.
+
 Feature ownership is contiguous-block: owner(f) = f // block_size, so one
 sort by feature id groups by owner and makes duplicates adjacent.
 
@@ -26,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ops
 
 INT32_MAX = 2 ** 31 - 1
@@ -43,6 +47,7 @@ class Routing(NamedTuple):
     overflow: torch.Tensor     # () int32: dropped unique features
 
 
+@obs.spanned("routing.route_build")
 def route_build(ids_flat: torch.Tensor, num_shards: int, block_size: int,
                 cap: int) -> Routing:
     """Build the request plan. ids_flat: (n,) int32 with -1 for padding."""
@@ -92,6 +97,7 @@ def route_build(ids_flat: torch.Tensor, num_shards: int, block_size: int,
                    overflow)
 
 
+@obs.spanned("routing.route_return")
 def route_return(routing: Routing, resp: torch.Tensor) -> torch.Tensor:
     """Map responses (P, cap) back to the original slot layout (n,).
 
@@ -111,6 +117,7 @@ def route_return(routing: Routing, resp: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@obs.spanned("routing.combine_grads")
 def combine_grads(routing: Routing, grads_flat: torch.Tensor
                   ) -> torch.Tensor:
     """Combiner: sum per-slot grads by feature -> (P, cap) send buffer.
@@ -141,6 +148,7 @@ def combine_grads(routing: Routing, grads_flat: torch.Tensor
     return send[:p * cap].view(p, cap)
 
 
+@obs.spanned("routing.owner_apply")
 def owner_apply(req_ids: torch.Tensor, table_local: torch.Tensor,
                 base: int) -> torch.Tensor:
     """Owner side of distributeParameters: look up requested rows.

@@ -72,6 +72,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.dpmr import num_shards
 from repro_torch.data.ownership import ShardAssignment, reassign_state
 from repro_torch.data.sources import DataSource
@@ -200,8 +201,9 @@ class ShardedLoader:
                    exact: the permutation is a pure function of the epoch
     shuffle_seed:  base seed of the per-epoch permutations
 
-    `wait_s` holds, for the most recent prefetching iterator, the seconds
-    the consumer waited for each batch it was handed.
+    A prefetching iterator adds the seconds the consumer waited for each
+    batch it was handed to the `obs` counter `loader.wait_s`, and counts
+    the batch in `loader.batches`.
     """
 
     def __init__(self, source: DataSource, mesh=None, *,
@@ -245,7 +247,6 @@ class ShardedLoader:
             raise ValueError(f"remainder must be 'drop'|'pad': {remainder!r}")
         self.remainder = remainder
         self.prefetch = int(prefetch)
-        self.wait_s: list[float] = []
         if batch_divisor is None:
             batch_divisor = num_shards(mesh) if placement == "sharded" else 1
         self.batch_divisor = int(batch_divisor)
@@ -598,7 +599,6 @@ class ShardedLoader:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         cuda = self.device is not None and self.device.type == "cuda"
-        self.wait_s = []
 
         def offer(item) -> bool:
             while not stop.is_set():
@@ -644,7 +644,8 @@ class ShardedLoader:
                     return
                 if kind == "error":
                     raise payload
-                self.wait_s.append(time.perf_counter() - t)
+                obs.count("loader.wait_s", time.perf_counter() - t)
+                obs.count("loader.batches")
                 self._check_token(token)
                 if event is not None:
                     stream = torch.cuda.current_stream(self.device)

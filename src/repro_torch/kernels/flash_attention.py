@@ -21,7 +21,7 @@ raises on inputs the kernel does not take: bf16 only (f32 raises
 of 128), a dense head dim, strides that are
 multiples of 8 and a 16-byte aligned base (what the kernel's TMA tensor
 maps take).
-`launches` counts launches.
+The `obs` counter `launch.flash_attention` counts launches.
 
 On fake tensors (`FakeTensorMode`, the dry run of `launch.dryrun`) the
 wrapper dispatches to the custom op `repro_torch::flash_attention`
@@ -39,9 +39,9 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build, ref
 
-launches = 0
 HEAD_DIMS = (64, 80, 128)
 
 
@@ -56,7 +56,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return fake_op()(q, k, v, causal)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
-    global launches
     _check_cuda(q, k, v)
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
@@ -70,7 +69,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         h, kh, d, strides, 1.0 / math.sqrt(d), int(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "flash_attention")
-    launches += 1
+    obs.count("launch.flash_attention")
     return out
 
 

@@ -23,13 +23,18 @@ Call sites on the main path:
   - `flash_attention`   the dense face's prefill self-attention, once per
                         layer (models.layers.causal_self_attention)
 
-Each kernel wrapper keeps a plain-int launch counter; `launch_counts()`
-reads them and `reset_launch_counts()` sets them to 0.
+Each kernel wrapper counts its launches in the `obs` counter
+`launch.<kernel>`; `launch_counts()` reads them and
+`reset_launch_counts()` sets them to 0. `sigmoid_grad`,
+`segment_sum_sorted`, `sorted_run_totals` and `owner_accumulate` open the
+`obs` spans `seam.<name>` at the seam's top level only: a seam function
+called inside another opens none.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import segment_sum as _ss
 from repro_torch.kernels import select_pack as _sp
@@ -37,27 +42,31 @@ from repro_torch.kernels import sigmoid_grad as _sg
 
 INT32_MAX = 2 ** 31 - 1
 
-sigmoid_grad = _sg.sigmoid_grad
-segment_sum_sorted = _ss.segment_sum_sorted
+KERNELS = ("sigmoid_grad", "segment_sum_sorted", "select_pack",
+           "flash_attention")
+
+
+def _seam(name: str):
+    return obs.spanned(f"seam.{name}", group="seam")
+
+
+sigmoid_grad = _seam("sigmoid_grad")(_sg.sigmoid_grad)
+segment_sum_sorted = _seam("segment_sum_sorted")(_ss.segment_sum_sorted)
 select_pack = _sp.select_pack
 flash_attention = _fa.flash_attention
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by kernel name."""
-    return {"sigmoid_grad": _sg.launches,
-            "segment_sum_sorted": _ss.launches,
-            "select_pack": _sp.launches,
-            "flash_attention": _fa.launches}
+    got = obs.counts("launch.")
+    return {k: int(got.get(f"launch.{k}", 0)) for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    _sg.launches = 0
-    _ss.launches = 0
-    _sp.launches = 0
-    _fa.launches = 0
+    obs.reset_counts("launch.")
 
 
+@_seam("sorted_run_totals")
 def sorted_run_totals(ids: torch.Tensor, grads: torch.Tensor):
     """Each distinct id's sum of `grads`, by a sorted reduce.
 
@@ -79,6 +88,7 @@ def sorted_run_totals(ids: torch.Tensor, grads: torch.Tensor):
     return ids_s, totals, (ids_s >= 0) & (ids_s != nxt)
 
 
+@_seam("owner_accumulate")
 def owner_accumulate(req_ids: torch.Tensor, grads: torch.Tensor,
                      acc_local: torch.Tensor, base: int) -> torch.Tensor:
     """The owner side of the gradient reduce, one add per unique feature.
@@ -95,11 +105,13 @@ def owner_accumulate(req_ids: torch.Tensor, grads: torch.Tensor,
     owner row receives at most one nonzero add: the scatter is
     deterministic on the card although `index_add_` uses atomics. Slots
     that scatter nothing are sent to row 0 with +0.0, which leaves any
-    value but -0.0 unchanged.
+    value but -0.0 unchanged. The rows that receive a total are counted
+    in `optimizer.rows_given_grad` while tracing is on.
     """
     rows = acc_local.shape[0]
     ids_s, totals, end = sorted_run_totals(req_ids, grads)
     local = ids_s - base
     scatter = end & (local >= 0) & (local < rows)
+    obs.count_device("optimizer.rows_given_grad", scatter)
     return acc_local.index_add_(0, torch.where(scatter, local, 0),
                                 torch.where(scatter, totals, 0.0))

@@ -12,8 +12,8 @@ the order of the additions differs.
 
 On CPU tensors the wrapper computes the plain version
 (`ref.segment_sum_sorted_ref`); on CUDA tensors it launches the kernel,
-or raises on inputs the kernel does not take. `launches` counts calls
-that launched it; each such call is one CUDA kernel and no memset.
+or raises on inputs the kernel does not take. The `obs` counter
+`launch.segment_sum_sorted` counts calls that launched it; each such call is one CUDA kernel and no memset.
 
 The look-back's state lives on the device: status words (one int64 a
 tile) and a control word (the ticket and the epoch) that the kernel alone
@@ -35,9 +35,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build, ref
 
-launches = 0
 CONTROL_WORDS = 1   # int64 words after the status words: the control word
 
 _lookback: dict[tuple[int, int], torch.Tensor] = {}
@@ -90,7 +90,6 @@ def segment_sum_sorted(ids: torch.Tensor, grads: torch.Tensor
     last slot, 0 elsewhere."""
     if ids.device.type == "cpu":
         return ref.segment_sum_sorted_ref(ids, grads)
-    global launches
     _check(ids, grads)
     n = ids.shape[0]
     out = torch.empty((n,), dtype=torch.float32, device=ids.device)
@@ -106,7 +105,7 @@ def segment_sum_sorted(ids: torch.Tensor, grads: torch.Tensor
     build.check(lib.repro_segment_sum_sorted_f32(
         ids.data_ptr(), grads.data_ptr(), out.data_ptr(), ptr,
         ptr + 8 * capacity, capacity, n, stream), "segment_sum_sorted")
-    launches += 1
+    obs.count("launch.segment_sum_sorted")
     return out
 
 

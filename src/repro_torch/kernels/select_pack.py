@@ -27,16 +27,16 @@ All three outputs equal the plain version bit for bit on both paths.
 
 On CPU tensors the wrapper computes the plain version
 (`ref.select_pack_ref`); on CUDA tensors it launches the kernel, or
-raises on inputs the kernel does not take. `launches` counts calls that
-launched it.
+raises on inputs the kernel does not take. The `obs` counter
+`launch.select_pack` counts calls that launched it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build, ref
 
-launches = 0
 
 
 # The cluster path's geometry, copied from `csrc/select_pack.cu` for the
@@ -100,7 +100,6 @@ def select_pack(send: torch.Tensor, ids: torch.Tensor,
     resid (P, cap) f32), as `ref.select_pack_ref`."""
     if ids.device.type == "cpu":
         return ref.select_pack_ref(send, ids, carry_slots, k)
-    global launches
     _check(send, ids, carry_slots, k)
     p, cap = ids.shape
     dev = ids.device
@@ -119,7 +118,7 @@ def select_pack(send: torch.Tensor, ids: torch.Tensor,
         vals_k.data_ptr(), ids_k.data_ptr(), resid.data_ptr(), *ptrs, p,
         cap, k, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "select_pack")
-    launches += 1
+    obs.count("launch.select_pack")
     return vals_k, ids_k, resid
 
 

@@ -8,7 +8,8 @@ shape) and what the design does about it.
 
 On CPU tensors the wrapper computes the plain version
 (`ref.sigmoid_grad_ref`); on CUDA tensors it launches the kernel, or
-raises on inputs the kernel does not take. `launches` counts launches.
+raises on inputs the kernel does not take. The `obs` counter
+`launch.sigmoid_grad` counts launches.
 
 A call costs the host more than the card, so the wrapper keeps its host
 work small: one allocation holds grads, probs and nll (`layout`), each
@@ -21,9 +22,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build, ref
 
-launches = 0
 _F32, _I32 = torch.float32, torch.int32
 
 
@@ -45,7 +46,6 @@ def sigmoid_grad(vals: torch.Tensor, theta: torch.Tensor,
     Returns (grads (B, K), probs (B,), nll (B,)), all f32."""
     if not vals.is_cuda and vals.device.type == "cpu":
         return ref.sigmoid_grad_ref(vals, theta, labels)
-    global launches
     b, k = _check(vals, theta, labels)
     p, n, total = layout(b, k)
     out = torch.empty((total,), dtype=_F32, device=vals.device)
@@ -58,7 +58,7 @@ def sigmoid_grad(vals: torch.Tensor, theta: torch.Tensor,
         vals.data_ptr(), theta.data_ptr(), labels.data_ptr(), out.data_ptr(),
         b, k, torch._C._cuda_getCurrentRawStream(vals.get_device())),
         "sigmoid_grad")
-    launches += 1
+    obs.count("launch.sigmoid_grad")
     return grads, probs, nll
 
 

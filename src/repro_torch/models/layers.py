@@ -23,7 +23,8 @@ differentiates its jnp blocks (the Pallas kernel has no backward).
 Prefill's attention is `kernels.ops.flash_attention` (the hand-written
 kernel on the card, its plain version on the CPU) without a window,
 causal or not; with a sliding window it is the reference's own blocked
-schedule, since the Pallas kernel has no window either.
+schedule, since the Pallas kernel has no window either. The attention
+core of `attention_block` runs inside the `obs` span `model.attention`.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common
@@ -380,10 +382,12 @@ def attention_block(p, x, cfg: ModelConfig, tables, *, causal: bool = True,
         q = apply_rope(q, sin, cos)
         if kv_x is None:
             k = apply_rope(k, sin, cos)
-    if kv_x is not None or not causal:
-        out = _bidirectional_blocked(q, k, v)
-    else:
-        out = blocked_causal_attention(q, k, v, window=cfg.sliding_window)
+    with obs.span("model.attention"):
+        if kv_x is not None or not causal:
+            out = _bidirectional_blocked(q, k, v)
+        else:
+            out = blocked_causal_attention(q, k, v,
+                                           window=cfg.sliding_window)
     return project_out(p, out)
 
 

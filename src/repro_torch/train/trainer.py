@@ -37,7 +37,8 @@ loss vocab-parallel. The MoE routing counts its groups over the whole
 microbatch wherever its tokens lie (`moe.Exchange`: a group may span DP
 ranks and the S-shards of `model` ranks), and the aux is the
 reference's, averaged over every group. `sparse_embed` is read by
-neither package's trainer.
+neither package's trainer. On one card, clipping runs inside the `obs`
+span `train.clip` and the optimizer inside `train.optimizer`.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from repro_torch import sharding as shd
+from repro_torch import obs, sharding as shd
 from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.convert import _pairs
 from repro_torch.core.fsdp import ParamLayout
@@ -284,12 +285,14 @@ def make_train_step(spec, cfg: ModelConfig, train_cfg: TrainConfig,
         micro = [batch] if k == 1 else _split_micro(batch, k)
         grads, loss, m = _accumulate(loss_fn, model, names, params, micro,
                                      adt)
-        grads, gnorm = optimizers.clip_by_global_norm(grads,
-                                                      train_cfg.grad_clip)
+        with obs.span("train.clip"):
+            grads, gnorm = optimizers.clip_by_global_norm(
+                grads, train_cfg.grad_clip)
         lr = sched(state["step"])
-        opt.update(grads, state["opt"], dict(zip(names, params,
-                                                 strict=True)),
-                   lr, train_cfg)
+        with obs.span("train.optimizer"):
+            opt.update(grads, state["opt"], dict(zip(names, params,
+                                                     strict=True)),
+                       lr, train_cfg)
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm, "lr": lr, **m}
 

@@ -28,6 +28,7 @@ from repro.data import ShardedLoader as JaxLoader
 from repro.data import get_source as jax_get_source
 from repro.data import reassign_state as jax_reassign
 from repro.data import write_file_corpus as jax_write_corpus
+from repro_torch import obs
 from repro_torch.configs.base import DPMRConfig
 from repro_torch.data import (
     Cursor,
@@ -269,6 +270,7 @@ def test_prefetch_hands_over_the_same_batches_and_moves_the_cursor():
     src = _zipf(get_source, n=6)
     plain = ShardedLoader(src, placement="host", prefetch=0).take(8)
     loader = ShardedLoader(src, placement="host", prefetch=3)
+    obs.reset_counts("loader.")
     it = loader.batches(8)
     first = next(it)
     # the producer runs ahead; the cursor counts what was handed over
@@ -277,7 +279,8 @@ def test_prefetch_hands_over_the_same_batches_and_moves_the_cursor():
     for g, w in zip([first, *rest], plain, strict=True):
         _same_batch(g, w)
     assert loader.cursor == Cursor(1, 2)
-    assert len(loader.wait_s) == 8
+    waited = obs.counts("loader.")
+    assert waited["loader.batches"] == 8 and waited["loader.wait_s"] >= 0
 
 
 def test_prefetch_raises_the_producers_error():
