@@ -19,7 +19,10 @@ Phases, in order; any failure exits non-zero:
               replays bit-identical to eager calls, one kernel and no
               memset a replay; `sigmoid_grad` also at (262144, 64), with
               an empty kernel and one round trip on its grid at both
-              shapes and its wrapper's host time split into parts). Two
+              shapes and its wrapper's host time split into parts;
+              `row_update` over one owner's received run totals into
+              the 2^27-row table, adagrad and sgd, bit for bit against
+              its plain version on the card). Two
               times each:
               `ms`/`plain_ms` are device time from a torch.profiler
               (CUPTI) trace, the mean over 20 calls after a warm-up call
@@ -38,7 +41,9 @@ Phases, in order; any failure exits non-zero:
               device-resident batches: `a2a`, then `topk_reduce` at
               topk_frac 0.05. Each: hot set from 4 batches, fit_sgd for
               20 steps with the kernel launch counters set to 0 just
-              before and read just after, a full-batch fit iteration, a
+              before and read just after (a2a: one row_update a step,
+              the table's update; topk_reduce and fit: none), a
+              full-batch fit iteration, a
               profiled window of 8 steps, evaluate on 3 held-out batches
               (start=1000)
   5. dataplane  at configuration 1's width: a file corpus of the 20
@@ -1218,6 +1223,66 @@ def _select_entries(torch, dev, routing, results):
         f"alone device ms={entry['library_ms']:.5f}")
 
 
+def _row_update_entry(torch, dev, path_req, results):
+    """row_update as the row path calls it: the run totals of one owner's
+    (1, cap) received buffer at the path's shape (`sorted_run_totals`)
+    into a 2^LOG2_F-row table and accumulator, adagrad (eps 1e-6) and sgd,
+    lr a 0-d tensor on the card and a float. Each against its plain
+    version (`ref.row_update_ref`, eager on the card, whose rsqrt is the
+    kernel's) on copies of the same state, bit for bit; timed against its
+    byte bound."""
+    from repro_torch.kernels import ops, ref
+
+    rows = 1 << LOG2_F
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    g = torch.randn(path_req.shape, generator=gen, device=dev) / BATCH
+    ids_s, totals, end = ops.sorted_run_totals(path_req, g)
+    theta0 = torch.randn(rows, generator=gen, device=dev) * 0.05
+    acc0 = torch.rand(rows, generator=gen, device=dev)
+    touched = int(end.sum())
+    same = {}
+    for kind in ("adagrad", "sgd"):
+        for lr in (torch.full((), 2.0, device=dev), 2.0):
+            got = (theta0.clone(), acc0.clone())
+            want = (theta0.clone(), acc0.clone())
+            ops.reset_launch_counts()
+            ops.row_update(kind, *got, ids_s, totals, 0, lr, 1e-6)
+            launched = ops.launch_counts()["row_update"]
+            ref.row_update_ref(kind, *want, ids_s, totals, 0, lr, 1e-6)
+            tag = f"{kind}, lr {type(lr).__name__}"
+            same[tag] = all(_same_bits(torch, a, b)
+                            for a, b in zip(got, want)) and launched == 1
+            changed = int((got[0] != theta0).sum())
+            log(f"[kernels] row_update {tag}: {ids_s.numel()} slots, "
+                f"{touched} rows touched, {changed} changed; bit-identical "
+                f"to the plain version={same[tag]} ({launched} launch)")
+            require(same[tag], f"row_update ({tag}) disagrees with its "
+                    "plain version")
+            del got, want
+    # bound: each slot's id (its neighbour's shares the sector) and total
+    # (12 B); a touched row's theta and acc read and written, each a
+    # scattered 32 B sector (128 B)
+    bms, by = bound(12 * ids_s.numel() + 128 * touched, 7 * touched)
+    entry = results["row_update"] = {
+        "name": "row_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/row_update.cu",
+        "replaces": "none: the reference's dense _sparse_adagrad / "
+                    "_sparse_sgd (src/repro/optim/optimizers.py)",
+        "launches": None, "max_abs_err": 0.0, "bit_identical": same,
+        "touched_rows": touched, "bound_ms": bms, "bound_by": by,
+        "library_ms": None}
+    theta, acc = theta0.clone(), acc0.clone()
+    lr = torch.full((), 2.0, device=dev)
+    _timed(torch, entry,
+           lambda: ops.row_update("adagrad", theta, acc, ids_s, totals, 0,
+                                  lr, 1e-6), ("row_update",),
+           lambda: ref.row_update_ref("adagrad", theta, acc, ids_s, totals,
+                                      0, lr, 1e-6))
+    _one_launch(torch, "row_update", entry, 1)
+    del theta, acc, theta0, acc0
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(torch, dev, batch, hot):
     from repro_torch.core import dpmr, sparse
 
@@ -1231,6 +1296,7 @@ def phase_kernels(torch, dev, batch, hot):
     results["segment_sum_sorted"]["graph"] = _seg_graph(torch, dev,
                                                         routing.req_ids)
     _select_entries(torch, dev, routing, results)
+    _row_update_entry(torch, dev, routing.req_ids, results)
 
     # the step's two reduces that collide, now through sorted runs
     g = torch.from_numpy(np.random.default_rng(SEED + 2).normal(
@@ -1339,22 +1405,26 @@ def phase_engine(torch, dev, results, train, test, hot):
     from repro_torch.api import put_batch
 
     dev_train = [put_batch(b, dev) for b in train]
-    kernels = ("sigmoid_grad", "segment_sum_sorted", "select_pack")
+    kernels = ("sigmoid_grad", "segment_sum_sorted", "row_update")
 
     a2a, eng = run_engine(torch, full_width_config("a2a"), dev_train, test,
                           hot)
     del eng
     counts, fit_counts = a2a["launches"], a2a["fit_launches"]
     # one sigmoid_grad a step; segment_sum_sorted under combine_grads,
-    # hot_grads and owner_accumulate
+    # hot_grads and the row reduce's sorted_run_totals; one row_update a
+    # step (the table's update on the row path); fit keeps the dense
+    # gradient and update
     require(counts["sigmoid_grad"] == STEPS
             and counts["segment_sum_sorted"] == 3 * STEPS
+            and counts["row_update"] == STEPS
             and counts["select_pack"] == 0,
             f"a2a launches {counts} in {STEPS} steps")
     require(fit_counts["sigmoid_grad"] == 2
-            and fit_counts["segment_sum_sorted"] == 6,
+            and fit_counts["segment_sum_sorted"] == 6
+            and fit_counts["row_update"] == 0,
             f"fit did not launch the kernels: {fit_counts}")
-    for name in kernels[:2]:
+    for name in kernels:
         results[name]["launches"] = counts[name]
     torch.cuda.empty_cache()
 
@@ -1364,7 +1434,8 @@ def phase_engine(torch, dev, results, train, test, hot):
     banked = int((eng.state.strat != 0).sum())
     log(f"[engine topk_reduce] features with a banked residual after "
         f"{STEPS} steps: {banked}")
-    require(counts["select_pack"] >= STEPS and counts["sigmoid_grad"] == STEPS,
+    require(counts["select_pack"] >= STEPS and counts["sigmoid_grad"] == STEPS
+            and counts["row_update"] == 0,
             f"topk_reduce launches {counts} in {STEPS} steps")
     require(banked > 0, "the topk_reduce carry stayed zero: no slot lost")
     require(fit_counts["select_pack"] == 0,
@@ -5843,7 +5914,8 @@ def main():
 
     kernels = [results[name] for name in ("sigmoid_grad",
                                           "segment_sum_sorted",
-                                          "select_pack", "flash_attention")]
+                                          "select_pack", "flash_attention",
+                                          "row_update")]
     out = ROOT / "results"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

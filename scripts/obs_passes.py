@@ -160,7 +160,9 @@ def passes(torch, prog, sparse: bool, steps: int, untraced_step_s: float):
             k: [out["harness_span_ms"].get(k), a["span_ms"].get(k)]
             for k in SPARSE_SPANS}
         given = b["device"].get("optimizer.rows_given_grad", 0)
-        passed = b["counts"].get("optimizer.rows_passed", 0)
+        # dense updates count on the host, row updates on the device
+        passed = b["counts"].get("optimizer.rows_passed", 0) + \
+            b["device"].get("optimizer.rows_passed", 0)
         out["metrics"] = {
             "sparse.dispatch_ms": b["host_ms"].get("dpmr.step"),
             "sparse.host_reads": b["counts"].get("host_reads", 0) / steps,

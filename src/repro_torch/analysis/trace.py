@@ -464,11 +464,13 @@ def trace_strategy(strategy, ctx, axis_sizes: dict, n: int | None = None,
 def strategy_scope(recorder: Recorder, strategy,
                    label: str = "strategy") -> Iterator[None]:
     """Label the collectives of `strategy`'s own `distribute` and
-    `reduce` (through whatever calls them, e.g. a step built by
-    `core.dpmr.make_step_fns`) with `label` in `recorder`: the instance's
-    two methods are wrapped for the block."""
-    saved = {m: vars(strategy)[m] for m in ("distribute", "reduce")
-             if m in vars(strategy)}
+    `reduce`, and its `reduce_rows` where it has one (`train_step`'s row
+    path), through whatever calls them, e.g. a step built by
+    `core.dpmr.make_step_fns`, with `label` in `recorder`: the instance's
+    methods are wrapped for the block."""
+    methods = [m for m in ("distribute", "reduce", "reduce_rows")
+               if getattr(strategy, m, None) is not None]
+    saved = {m: vars(strategy)[m] for m in methods if m in vars(strategy)}
 
     def wrap(fn):
         def scoped(*args, **kwargs):
@@ -476,12 +478,12 @@ def strategy_scope(recorder: Recorder, strategy,
                 return fn(*args, **kwargs)
         return scoped
 
-    for m in ("distribute", "reduce"):
+    for m in methods:
         setattr(strategy, m, wrap(getattr(strategy, m)))
     try:
         yield
     finally:
-        for m in ("distribute", "reduce"):
+        for m in methods:
             delattr(strategy, m)
             if m in saved:
                 setattr(strategy, m, saved[m])

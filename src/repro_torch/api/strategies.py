@@ -119,6 +119,16 @@ class DistributionStrategy:
     full-batch path, whose caller discards the new carry), and expects
     `(grad_cold, new_carry)` back. `reduce` may update the carry IN PLACE
     and return it: at 2^27 features it is 512 MiB.
+
+    A stateless strategy whose owner-side gradient is one add per received
+    feature may also give it as run totals: `reduce_rows(ctx, cold_loc,
+    grads_flat, fwd)` returns the `kernels.ops.RowGrad` of the received
+    ids and sums, whose rows `reduce`'s dense gradient would hold, and
+    `train_step` hands it to the optimizer's row update (`a2a`,
+    `overlap_a2a`). `has_row_reduce(strategy)` says which strategies
+    have one: only those whose class defines `reduce_rows` beside `reduce`, so
+    a subclass that changes `reduce` does not inherit a row reduce that
+    would skip it.
     """
 
     name: str = "base"
@@ -275,14 +285,29 @@ def _sparse_distribute(ctx, cold_loc, cold_ids, a2a_fn=None):
                         "cold_ids": cold_ids, "overflow": routing.overflow}
 
 
-def _exact_reduce(ctx, cold_loc, grads_flat, fwd, a2a_fn=None):
-    """The paper's reverse shuffle: per-feature sums to their owner, one
-    add per feature (`ops.owner_accumulate`)."""
+def _received_sums(ctx, grads_flat, fwd, a2a_fn=None):
+    """The paper's reverse shuffle: this rank's per-feature sums sent to
+    their owners; returns the (P, cap) sums received, aligned with
+    `fwd["req_recv"]`."""
     if a2a_fn is None:
         a2a_fn = lambda x: _all_to_all(x, ctx)  # noqa: E731
-    send = sparse.combine_grads(fwd["routing"], grads_flat)
-    return ops.owner_accumulate(fwd["req_recv"], a2a_fn(send),
-                                torch.zeros_like(cold_loc), _owner_base(ctx))
+    return a2a_fn(sparse.combine_grads(fwd["routing"], grads_flat))
+
+
+def _exact_reduce(ctx, cold_loc, grads_flat, fwd, a2a_fn=None):
+    """The reverse shuffle with one add per feature at the owner
+    (`ops.owner_accumulate`): the dense (rows,) gradient."""
+    return ops.owner_accumulate(
+        fwd["req_recv"], _received_sums(ctx, grads_flat, fwd, a2a_fn),
+        torch.zeros_like(cold_loc), _owner_base(ctx))
+
+
+def _exact_row_reduce(ctx, cold_loc, grads_flat, fwd, a2a_fn=None):
+    """`_exact_reduce` without the dense gradient: the run totals that
+    `owner_accumulate` would scatter into zeros, as a `RowGrad`."""
+    ids_s, totals, _ = ops.sorted_run_totals(
+        fwd["req_recv"], _received_sums(ctx, grads_flat, fwd, a2a_fn))
+    return ops.RowGrad(ids_s, totals, _owner_base(ctx))
 
 
 def _dense_accumulate(ctx, cold_loc, grads_flat, cold_ids):
@@ -344,6 +369,9 @@ class AllToAllStrategy(DistributionStrategy):
 
     def reduce(self, ctx, cold_loc, grads_flat, fwd):
         return _exact_reduce(ctx, cold_loc, grads_flat, fwd)
+
+    def reduce_rows(self, ctx, cold_loc, grads_flat, fwd):
+        return _exact_row_reduce(ctx, cold_loc, grads_flat, fwd)
 
     def bytes_per_device(self, ctx):
         # 3 (P, cap) f32 buffers (requests, responses, grad sums); a rank
@@ -543,6 +571,10 @@ class OverlapA2AStrategy(AllToAllStrategy):
     def reduce(self, ctx, cold_loc, grads_flat, fwd):
         return _exact_reduce(ctx, cold_loc, grads_flat, fwd,
                              a2a_fn=lambda x: self._a2a(ctx, x))
+
+    def reduce_rows(self, ctx, cold_loc, grads_flat, fwd):
+        return _exact_row_reduce(ctx, cold_loc, grads_flat, fwd,
+                                 a2a_fn=lambda x: self._a2a(ctx, x))
 
 
 def _hier_remap(cold_ids: torch.Tensor, po: int, pi: int,
@@ -821,6 +853,17 @@ def get_strategy(name: str) -> DistributionStrategy:
             f"unknown distribution strategy {name!r}; "
             f"registered: {sorted(_REGISTRY)} (\"auto\" is resolved by "
             "core.dpmr.resolve_distribution, not registered)") from None
+
+
+def has_row_reduce(strategy: DistributionStrategy) -> bool:
+    """Whether `strategy` gives its gradient as run totals
+    (`reduce_rows`): only where the class that gives it its `reduce`
+    defines `reduce_rows` too, so a subclass that changes `reduce` takes
+    the dense route until it gives a row reduce of its own."""
+    for klass in type(strategy).__mro__:
+        if "reduce" in vars(klass):
+            return "reduce_rows" in vars(klass)
+    return False
 
 
 def list_strategies() -> list[str]:

@@ -14,9 +14,21 @@ One train step runs the paper's stages in order:
   computeGradients      Algorithm 6    kernels.ops.sigmoid_grad (map body)
                                        + sparse.combine_grads (combiner)
   (reduce shuffle)                     a2a(grad sums) +
-                                       kernels.ops.owner_accumulate
-  updateParameters      Algorithm 7    sparse optimizer on the owner block,
+                                       kernels.ops.owner_accumulate, or
+                                       on train_step's row path the run
+                                       totals alone
+  updateParameters      Algorithm 7    sparse optimizer on the owner block
+                                       (its touched rows on the row path),
                                        and on the replicated hot set
+
+`train_step` takes the row path where the strategy has a row reduce
+(`reduce_rows`: a2a, overlap_a2a) and the optimizer a row update
+(`optim.optimizers.row_update`: sgd, adagrad with eps > 0): the reduce
+hands over its run totals as a `kernels.ops.RowGrad`, and
+`optimize` updates only the rows they name with the `row_update` kernel,
+with no (F/P,) gradient and no pass over the table. The state is the
+dense route's bit for bit. Every other pair, `grad_step`,
+`apply_update` and the hot set take the dense gradient and update.
 
 The step functions are plain functions on tensors: no `nn.Module` and no
 `autograd.Function`. The JAX package never differentiates either: the
@@ -33,9 +45,13 @@ not touch it.
 
 Spans and counters (`repro_torch.obs`): `train_step`, `grad_step` and
 `apply_update` run inside `dpmr.step`, each `optimize` call inside
-`optimizer.update`; `optimizer.rows_passed` counts the rows each
-`optimize` call passes over, `optimizer.rows_given_grad` (with
-`ops.owner_accumulate`'s) the hot slots that receive a gradient.
+`optimizer.update`; `optimizer.row_updates` and `optimizer.dense_updates`
+count the `optimize` calls by the path they take;
+`optimizer.rows_passed` counts the rows each call passes over (a dense
+call's whole table on the host, a row call's written rows on the device
+while tracing is on), `optimizer.rows_given_grad` (with
+`ops.owner_accumulate`'s) the rows and hot slots that receive a
+gradient.
 
 The reference runs the step as one `shard_map` program over every mesh
 axis. Here each rank of a `DeviceMesh` (`launch.mesh`) runs the step on
@@ -177,7 +193,18 @@ def init_state(cfg: DPMRConfig, device, hot_ids=None,
 
 @obs.spanned("optimizer.update")
 def optimize(cfg: DPMRConfig, theta, acc, grad, lr):
-    """Algorithm 7 step 12: newPara = optimize(para, grad), in place."""
+    """Algorithm 7 step 12: newPara = optimize(para, grad), in place.
+
+    `grad` is a dense tensor like `theta`, or a `RowGrad` (train_step's
+    row path), which goes to the optimizer's row update."""
+    if isinstance(grad, ops.RowGrad):
+        obs.count("optimizer.row_updates")
+        if obs.tracing():
+            written = grad.written(theta.shape[0])
+            obs.count_device("optimizer.rows_passed", written)
+            obs.count_device("optimizer.rows_given_grad", written)
+        return optimizers.row_update(cfg)(theta, acc, grad, lr, cfg)
+    obs.count("optimizer.dense_updates")
     obs.count("optimizer.rows_passed", theta.numel())
     return optimizers.get_sparse_optimizer(cfg.optimizer).update(
         theta, acc, grad, lr, cfg)
@@ -208,10 +235,11 @@ def _device_fwd(cfg, strategy, ctx, cold_loc, hot, hot_ids, ids, vals):
 
 
 def _device_grads(cfg, strategy, ctx, cold_loc, grads_slot, fwd, aux,
-                  carry, stateful, accumulating=False):
+                  carry, stateful, accumulating=False, rows=False):
     """Reduce stages: per-feature sums delivered to the owner, the
     hot-set gradient summed over ranks (`strategies._psum`), and the
-    strategy's new carry.
+    strategy's new carry. With `rows` (a stateless strategy with
+    `reduce_rows`) the owner's sums come as a `RowGrad`.
 
     `carry` is this rank's slice of `DPMRState.strat`; a stateful strategy
     gets it as `fwd["carry"]` and returns `(grad_cold, new_carry)`.
@@ -222,7 +250,10 @@ def _device_grads(cfg, strategy, ctx, cold_loc, grads_slot, fwd, aux,
     from repro_torch.api.strategies import _psum
 
     gflat = grads_slot.reshape(-1)
-    if stateful:
+    if rows:
+        grad_cold = strategy.reduce_rows(ctx, cold_loc, gflat, fwd)
+        carry_new = carry
+    elif stateful:
         grad_cold, carry_new = strategy.reduce(
             ctx, cold_loc, gflat,
             {**fwd, "carry": carry, "accumulate": accumulating})
@@ -341,7 +372,7 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *, mesh=None,
     launch the CUDA kernels (`kernels.ops`), on the CPU they take the
     plain versions. `predict` returns this rank's rows' probabilities."""
     # late import: repro_torch.api.strategies imports from this package
-    from repro_torch.api.strategies import get_strategy
+    from repro_torch.api.strategies import get_strategy, has_row_reduce
 
     p = num_shards(mesh)
     f = padded_features(cfg, p)
@@ -352,9 +383,12 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *, mesh=None,
     strategy = get_strategy(dist_name)
     ctx = make_strategy_context(cfg, mesh, cap)
     stateful = strategy.init_carry(ctx, device="meta") is not None
+    # train_step's row path: what the strategy and the optimizer can do
+    rows = has_row_reduce(strategy) and not stateful \
+        and optimizers.row_update(cfg) is not None
     sched = make_schedule(cfg)
 
-    def _fwd_grads(state, batch, accumulating=False):
+    def _fwd_grads(state, batch, accumulating=False, rows=False):
         ids, vals, labels = batch["ids"], batch["vals"], batch["labels"]
         theta, fwd, aux = _device_fwd(cfg, strategy, ctx, state.cold,
                                       state.hot, state.hot_ids, ids, vals)
@@ -366,14 +400,14 @@ def make_step_fns(cfg: DPMRConfig, batch_size: int, *, mesh=None,
                 (), float(batch_size))
         grad_cold, grad_hot, carry = _device_grads(
             cfg, strategy, ctx, state.cold, grads_slot, fwd, aux,
-            state.strat, stateful, accumulating)
+            state.strat, stateful, accumulating, rows)
         return grad_cold, grad_hot, carry, _metrics(
             ctx, probs, labels, nll, aux["overflow"])
 
     @torch.no_grad()
     @obs.spanned("dpmr.step")
     def train_step(state: DPMRState, batch):
-        grad_cold, grad_hot, carry, m = _fwd_grads(state, batch)
+        grad_cold, grad_hot, carry, m = _fwd_grads(state, batch, rows=rows)
         if carry is not state.strat:    # a strategy may update it in place
             state.strat.copy_(carry)
         lr = sched(state.step)

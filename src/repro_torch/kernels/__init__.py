@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, behind a device-dispatched seam.
 
 Layout:
-  ops.py              the seam: strategies and step fns import ONLY this
+  ops.py              the seam: strategies, step fns and the sparse
+                      optimizers import ONLY this
   ref.py              plain PyTorch versions, run for CPU tensors and the
                       parity oracle of every kernel
   sigmoid_grad.py     wrapper of csrc/sigmoid_grad.cu (computeGradients)
@@ -11,6 +12,8 @@ Layout:
                       per-row top-k select + pack)
   flash_attention.py  wrapper of csrc/flash_attention.cu (the dense
                       prefill's causal GQA attention, bf16)
+  row_update.py       wrapper of csrc/row_update.cu (sgd / adagrad over
+                      the rows that a reduce's run totals name)
   build.py            nvcc build of csrc/*.cu for sm_90a at first use,
                       loaded with ctypes
 """

@@ -139,6 +139,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_flash_attention_bf16.restype = i
     lib.repro_flash_attention_smem_bytes.argtypes = [i]
     lib.repro_flash_attention_smem_bytes.restype = i
+    f = ctypes.c_float
+    lib.repro_row_update_f32.argtypes = [p, p, ll, ll, ll, p, p, p, f, f, i,
+                                         p]
+    lib.repro_row_update_f32.restype = i
     return lib
 
 

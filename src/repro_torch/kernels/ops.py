@@ -10,10 +10,12 @@ Call sites on the main path:
   - `sigmoid_grad`      computeGradients map body (core.dpmr step fns)
   - `owner_accumulate`  the reverse-shuffle add on the owner, as
                         `sorted_run_totals` + one scatter of the totals
-                        (every strategy's reduce, and the dense
+                        (every strategy's dense reduce, and the dense
                         accumulate of allgather/psum_scatter/
                         compressed_reduce)
-  - `sorted_run_totals` also the hot-set gradient (core.dpmr.hot_grads)
+  - `sorted_run_totals` also the hot-set gradient (core.dpmr.hot_grads),
+                        and alone a2a's and overlap_a2a's row reduce
+                        (api.strategies.AllToAllStrategy.reduce_rows)
   - `segment_sum_sorted` the sorted reduce under both, and the combiner
                         `core.sparse.combine_grads` on the routing's order;
                         one CUDA kernel a call (a single-pass scan)
@@ -22,6 +24,10 @@ Call sites on the main path:
                         cluster kernel a call at the main path's shapes
   - `flash_attention`   the dense face's prefill self-attention, once per
                         layer (models.layers.causal_self_attention)
+  - `row_update`        the sparse optimizer (sgd, adagrad) over the rows
+                        of a `RowGrad`, `sorted_run_totals`' run ends
+                        (optim.optimizers' row updates, on train_step's
+                        row path: a2a and overlap_a2a)
 
 Each kernel wrapper counts its launches in the `obs` counter
 `launch.<kernel>`; `launch_counts()` reads them and
@@ -32,10 +38,14 @@ called inside another opens none.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch import obs
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref
+from repro_torch.kernels import row_update as _ru
 from repro_torch.kernels import segment_sum as _ss
 from repro_torch.kernels import select_pack as _sp
 from repro_torch.kernels import sigmoid_grad as _sg
@@ -43,7 +53,7 @@ from repro_torch.kernels import sigmoid_grad as _sg
 INT32_MAX = 2 ** 31 - 1
 
 KERNELS = ("sigmoid_grad", "segment_sum_sorted", "select_pack",
-           "flash_attention")
+           "flash_attention", "row_update")
 
 
 def _seam(name: str):
@@ -54,6 +64,7 @@ sigmoid_grad = _seam("sigmoid_grad")(_sg.sigmoid_grad)
 segment_sum_sorted = _seam("segment_sum_sorted")(_ss.segment_sum_sorted)
 select_pack = _sp.select_pack
 flash_attention = _fa.flash_attention
+row_update = _ru.row_update
 
 
 def launch_counts() -> dict[str, int]:
@@ -86,6 +97,23 @@ def sorted_run_totals(ids: torch.Tensor, grads: torch.Tensor):
                                 grads.reshape(-1)[order].contiguous())
     nxt = torch.cat([ids_s[1:], ids_s.new_full((1,), -1)])
     return ids_s, totals, (ids_s >= 0) & (ids_s != nxt)
+
+
+class RowGrad(NamedTuple):
+    """A reduce's gradient as the run totals of its received ids: the
+    `ids_s` and `totals` of `sorted_run_totals`, and the global id of the
+    owner block's row 0. The rows it names are the run ends' ids - `base`
+    inside the block (`written`), each with its total; every other row's
+    gradient is +0.0. `row_update` applies it."""
+
+    ids: torch.Tensor        # (N,) int32 sorted ascending, padding -1 last
+    totals: torch.Tensor     # (N,) f32 each run's total at its last slot
+    base: int
+
+    def written(self, rows: int) -> torch.Tensor:
+        """(N,) bool: the slots whose row `row_update` writes in a block
+        of `rows` rows."""
+        return ref.row_update_slots(self.ids, self.base, rows)
 
 
 @_seam("owner_accumulate")

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels.
 
 Counterparts of `repro.kernels.ref.sigmoid_grad_ref`,
-`segment_sum_sorted_ref`, `select_pack_ref` and `flash_attention_ref`.
+`segment_sum_sorted_ref`, `select_pack_ref` and `flash_attention_ref`;
+`row_update_ref` has none (the JAX package updates the whole table).
 Each is the function its CUDA kernel computes, written as ordinary tensor
 code: the wrappers in this package run it when they are handed CPU
 tensors, the CPU tests hold it against the JAX package, and
@@ -61,6 +62,45 @@ def segment_sum_sorted_ref(ids, grads):
     sums = torch.zeros((n,), dtype=torch.float32, device=ids.device)
     sums.index_add_(0, seg, g)
     return torch.where(is_end, sums[seg], 0.0)
+
+
+def row_update_slots(ids_s, base, rows):
+    """(N,) bool: the slots of `ids_s` (sorted, padding -1 last) whose row
+    the row update writes: the last slot of a run of a real id whose row,
+    id - base, lies in [0, rows). They hold distinct rows."""
+    nxt = torch.cat([ids_s[1:], ids_s.new_full((1,), -1)])
+    local = ids_s.to(torch.int64) - base
+    return (ids_s >= 0) & (ids_s != nxt) & (local >= 0) & (local < rows)
+
+
+def row_update_ref(kind, theta, acc, ids_s, totals, base, lr, eps=0.0):
+    """The sparse optimizer over the rows that run totals name, IN PLACE.
+
+    ids_s, totals: (N,) as `ops.sorted_run_totals` returns them (ids
+    sorted ascending, padding -1 last; each run's total at its last
+    slot); theta, acc: (rows,) f32 owner block whose row 0 is global id
+    `base`. The rows are the run ends' ids - base inside [0, rows); each
+    takes g = 0 + total (the dense gradient's zeros plus the scatter)
+    and the dense update's f32 operations in its order
+    (`optim.optimizers._sparse_adagrad`, `_sparse_sgd`):
+
+        adagrad  acc += g*g;  theta -= rsqrt(acc + eps) * g * lr
+        sgd      theta -= g * lr
+
+    Every other row keeps its bits. Returns (theta, acc)."""
+    act = row_update_slots(ids_s, base, theta.shape[0])
+    rows = ids_s.to(torch.int64)[act] - base
+    g = torch.zeros_like(totals[act]) + totals[act]
+    if kind == "adagrad":
+        a = acc[rows]
+        a.add_(g * g)
+        step = torch.rsqrt(a + eps).mul_(g)
+        acc[rows] = a
+    else:
+        step = g
+    t = theta[rows]
+    theta[rows] = t.sub_(step * lr)
+    return theta, acc
 
 
 def select_pack_ref(send, ids, carry_slots, k: int):

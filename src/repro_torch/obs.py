@@ -6,6 +6,7 @@
     count_device(name, t)      adds t's sum into a device accumulator,
                                only while tracing is on
     enabled()                  turns tracing on for a `with` block
+    tracing()                  whether it is on
     snapshot(), reset()        read (the one sync) and clear all of it
 
 Tracing is off by default. Then `span` returns one shared no-op context
@@ -39,12 +40,18 @@ Spans and counters of the port:
   host_reads                device values read by the host in
                             api/engine.py's train_step, fit,
                             learning_rate and host_step
+  optimizer.row_updates, optimizer.dense_updates
+                            core.dpmr.optimize calls by the path they
+                            take: a RowGrad to the row update, a dense
+                            gradient to the dense update (host)
   optimizer.rows_passed     rows each core.dpmr.optimize call passes
-                            over (host)
+                            over: a dense call's whole table (host), a
+                            row call's written rows (device)
   optimizer.rows_given_grad rows that receive a gradient: the run ends
                             that ops.owner_accumulate scatters into its
-                            block and the distinct hot slots of
-                            core.dpmr.hot_grads (device)
+                            block, a row call's written rows, and the
+                            distinct hot slots of core.dpmr.hot_grads
+                            (device)
   launch.<kernel>           each kernel wrapper's launches
                             (kernels.ops.launch_counts)
   loader.wait_s, loader.batches
@@ -67,6 +74,11 @@ _local = threading.local()
 _spans: dict[tuple[str, str | None], list[int]] = {}
 _counts: dict[str, int | float] = {}
 _device: dict[str, torch.Tensor] = {}
+
+
+def tracing() -> bool:
+    """Whether tracing is on: for work that only a device counter reads."""
+    return _on
 
 
 @contextlib.contextmanager

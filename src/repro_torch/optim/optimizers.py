@@ -18,6 +18,14 @@ returns new arrays from donated buffers, the port updates `theta` and
 2^27 features each table is 512 MiB, and a copy per step would double
 the state. `lr` is a Python float or a 0-d f32 tensor on the tables'
 device; the arithmetic is f32, in the reference's order.
+
+A registry entry may also have a `rows` update, `(theta, acc, g, lr,
+cfg)` with `g` a `kernels.ops.RowGrad`: the same update over only the
+rows that a reduce's run totals name (`kernels.ops.row_update`). `sgd` and `adagrad` have one: a row
+whose gradient is +0.0 keeps its bits under both (adagrad with eps > 0),
+so it gives the dense update's state bit for bit without a pass over the
+table. `momentum` decays every row and has none. `row_update(cfg)` says
+which applies.
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ from collections.abc import Callable
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels import ops
 
 
 class Optimizer(NamedTuple):
@@ -133,6 +143,8 @@ def get_optimizer(name: str) -> Optimizer:
 
 class SparseOptimizer(NamedTuple):
     update: Callable     # (theta, acc, grad, lr, cfg) -> (theta, acc)
+    rows: Callable | None = None   # (theta, acc, ops.RowGrad, lr, cfg) ->
+    #                                (theta, acc); None: dense only
 
 
 @torch.no_grad()
@@ -156,9 +168,18 @@ def _sparse_momentum(theta, acc, grad, lr, cfg):
     return theta, acc
 
 
+def _sgd_rows(theta, acc, g, lr, cfg):
+    return ops.row_update("sgd", theta, acc, g.ids, g.totals, g.base, lr)
+
+
+def _adagrad_rows(theta, acc, g, lr, cfg):
+    return ops.row_update("adagrad", theta, acc, g.ids, g.totals, g.base,
+                          lr, cfg.adagrad_eps)
+
+
 SPARSE_OPTIMIZERS = {
-    "sgd": SparseOptimizer(_sparse_sgd),
-    "adagrad": SparseOptimizer(_sparse_adagrad),
+    "sgd": SparseOptimizer(_sparse_sgd, _sgd_rows),
+    "adagrad": SparseOptimizer(_sparse_adagrad, _adagrad_rows),
     "momentum": SparseOptimizer(_sparse_momentum),
 }
 
@@ -170,3 +191,14 @@ def get_sparse_optimizer(name: str) -> SparseOptimizer:
         raise KeyError(
             f"unknown sparse optimizer {name!r}; "
             f"registered: {sorted(SPARSE_OPTIMIZERS)}") from None
+
+
+def row_update(cfg) -> Callable | None:
+    """`cfg.optimizer`'s row update where it gives the dense update's
+    bits, else None: adagrad at eps <= 0 turns an untouched row with a
+    zero accumulator into NaN (rsqrt(0) * 0), so it keeps the dense
+    pass there."""
+    rows = get_sparse_optimizer(cfg.optimizer).rows
+    if cfg.optimizer == "adagrad" and not cfg.adagrad_eps > 0:
+        return None
+    return rows

@@ -604,6 +604,131 @@ def test_combine_and_hot_grads_bit_reproducible(cuda):
         assert outs[0].any()
 
 
+# (rows, base, slots, distinct ids, id range past the block, seed): the
+# received (P, cap) buffer's run totals that the row update reads; ids
+# drawn from `distinct` values in [base - past, base + rows + past), a
+# Zipf-like count of slots each, -1 padding after them
+_ROW_CASES = {
+    "spread": (1 << 16, 0, 20000, 3000, 0, 1),
+    "edges": (4096, 0, 600, 0, 0, 2),          # rows 0 and rows - 1 named
+    "outside-block": (4096, 10000, 8000, 900, 2000, 3),
+    "all-padding": (4096, 0, 512, None, 0, 4),
+    "duplicates": (4096, 7, 160000, 40, 0, 5),
+    "b4096-shape": (1 << 24, 1 << 20, 159744, 21145, 0, 6),
+}
+
+
+def _row_inputs(cuda, rows, base, slots, distinct, past, seed):
+    """(req_ids (1, slots) int32, grads (1, slots) f32): run totals of
+    every kind the reduce makes, an id whose slots all carry -0.0 (its
+    total is -0.0) among them."""
+    rng = np.random.default_rng(seed)
+    if distinct is None:
+        ids = np.full(slots, -1, np.int64)
+    else:
+        if distinct == 0:      # row 0 and the last row, heavily repeated
+            pool = np.array([base, base + rows - 1, base + rows // 2])
+        else:
+            pool = rng.choice(np.arange(base - past, base + rows + past),
+                              size=distinct, replace=False)
+            pool = pool[pool >= 0]
+        w = 1.0 / np.arange(1, pool.size + 1) ** 1.1
+        live = slots - slots // 8
+        ids = np.concatenate([rng.choice(pool, size=live, p=w / w.sum()),
+                              np.full(slots - live, -1)])
+    grads = rng.normal(size=slots).astype(np.float32)
+    if distinct is not None:
+        grads[ids == ids[0]] = -0.0
+    return (torch.from_numpy(ids.astype(np.int32)).to(cuda)[None],
+            torch.from_numpy(grads).to(cuda)[None])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sgd", "adagrad"])
+@pytest.mark.parametrize("lr_kind", ["float", "tensor"])
+@pytest.mark.parametrize("case", sorted(_ROW_CASES))
+def test_row_update_kernel_matches_the_dense_chain(cuda, case, lr_kind,
+                                                   kind):
+    """The row update on a reduce's run totals leaves theta and acc as the
+    eager dense chain does (a (rows,) gradient from `owner_accumulate`,
+    then the registry's dense update), every row bit for bit: untouched
+    rows, rows 0 and rows - 1, ids outside the block, all padding, heavy
+    duplicates, -0.0 totals and -0.0 rows; lr a float and a 0-d tensor
+    read on the card. One launch a call."""
+    import types
+
+    from repro_torch.optim import optimizers
+
+    rows, base, slots, distinct, past, seed = _ROW_CASES[case]
+    req_ids, grads = _row_inputs(cuda, rows, base, slots, distinct, past,
+                                 seed)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    theta = torch.randn(rows, device=cuda, generator=g)
+    theta[::7] = -0.0
+    acc = torch.rand(rows, device=cuda, generator=g)
+    acc[::5] = 0.0
+    lr = 0.37 if lr_kind == "float" else torch.full((), 0.37, device=cuda)
+    cfg = types.SimpleNamespace(adagrad_eps=1e-6)
+    t_row, a_row, t_dense, a_dense = (theta.clone(), acc.clone(),
+                                      theta.clone(), acc.clone())
+
+    ids_s, totals, end = ops.sorted_run_totals(req_ids, grads)
+    before = ops.launch_counts()["row_update"]
+    ops.row_update(kind, t_row, a_row, ids_s, totals, base, lr, 1e-6)
+    assert ops.launch_counts()["row_update"] == before + 1
+    dense = ops.owner_accumulate(req_ids, grads,
+                                 torch.zeros(rows, device=cuda), base)
+    optimizers.SPARSE_OPTIMIZERS[kind].update(t_dense, a_dense, dense, lr,
+                                              cfg)
+    torch.cuda.synchronize()
+    assert _same_bits(t_row, t_dense)
+    assert _same_bits(a_row, a_dense)
+    local = ids_s.long() - base
+    named = end & (local >= 0) & (local < rows)
+    if distinct is None:
+        assert not named.any() and _same_bits(t_row, theta)
+    else:
+        assert named.any()
+        assert int(named.sum()) < rows      # some rows left untouched
+    if case == "edges":
+        hit = local[named].tolist()
+        assert 0 in hit and rows - 1 in hit
+
+
+@pytest.mark.gpu
+def test_row_update_device_time_falls_under_its_callers_span(cuda):
+    """The profiler links the row update's kernel to the op
+    `repro_torch::row_update`, so a span around the call (the benchmark's
+    `optimizer.update`) holds its device time; a bare ctypes launch is
+    linked to no host event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    rows = 1 << 20
+    req_ids, grads = _row_inputs(cuda, rows, 0, 65536, 20000, 0, 7)
+    ids_s, totals, _ = ops.sorted_run_totals(req_ids, grads)
+    theta = torch.randn(rows, device=cuda)
+    acc = torch.rand(rows, device=cuda)
+    lr = torch.full((), 0.5, device=cuda)
+    ops.row_update("adagrad", theta, acc, ids_s, totals, 0, lr, 1e-6)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("caller"):
+            for _ in range(5):
+                ops.row_update("adagrad", theta, acc, ids_s, totals, 0, lr,
+                               1e-6)
+        torch.cuda.synchronize()
+    span = kernel = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name == "caller":
+            span += e.device_time_total
+        elif e.device_type == DeviceType.CUDA and "row_update" in e.name:
+            kernel += e.time_range.end - e.time_range.start
+    assert kernel > 0
+    assert span >= 0.9 * kernel
+
+
 # (B, Sq, Skv, H, KH, D, causal): the serve path's head layout at a short
 # S, then D = 64, MHA, MQA with group 48, ragged S, Sq < Skv, full
 # attention and one query row; then the kernel's tile edges (128 query

@@ -82,9 +82,13 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     q = torch.from_numpy(rng.normal(size=(1, 5, 2, 4)).astype(np.float32))
     assert torch.equal(ops.flash_attention(q, q[:, :, :1], q[:, :, 1:]),
                        ref.flash_attention_ref(q, q[:, :, :1], q[:, :, 1:]))
+    theta, acc = torch.zeros(4), torch.ones(4)
+    ops.row_update("adagrad", theta, acc, ids, torch.ones(4), 0, 0.5, 1e-6)
+    assert torch.equal(acc, torch.tensor([2.0, 1.0, 1.0, 2.0]))
     assert ops.launch_counts() == {"sigmoid_grad": 0,
                                    "segment_sum_sorted": 0,
-                                   "select_pack": 0, "flash_attention": 0}
+                                   "select_pack": 0, "flash_attention": 0,
+                                   "row_update": 0}
 
 
 # ---------------------------------------------------------------------------

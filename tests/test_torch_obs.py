@@ -6,8 +6,12 @@
   layers give them, a seam function inside another opens no span, and
   the aggregates hold calls, host ns and self ns.
 - `optimizer.rows_given_grad` is the batch's distinct cold ids plus its
-  distinct hot slots; `optimizer.rows_passed` the table's rows plus
-  `max_hot` an `optimize` pair; `host_reads` 3 a `train_step`.
+  distinct hot slots. `optimizer.rows_passed` is, on a2a's row path, the
+  distinct cold rows (device: the rows the row update writes) plus
+  `max_hot` (host: the hot set's dense update), so the table's useful
+  share is 100%; on a dense path (allgather) the table's rows plus
+  `max_hot`. `optimizer.row_updates` and `optimizer.dense_updates` count
+  the `optimize` calls by path; `host_reads` 3 a `train_step`.
 - `scripts/obs_trace.py`'s `read_trace` gives `model.attention` the
   autograd engine's work for the ops made under it (remat full and
   none), by sequence number.
@@ -36,8 +40,9 @@ obs_trace = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(obs_trace)
 
 F, K, B, MAX_HOT = 1 << 10, 8, 32, 8
+# a2a's row path: the table's run totals come from sorted_run_totals at
+# the top level; owner_accumulate opens its span on a dense path
 SEAM = {"seam.sigmoid_grad": "dpmr.step",
-        "seam.owner_accumulate": "dpmr.step",
         "seam.sorted_run_totals": "dpmr.step",
         "seam.segment_sum_sorted": "routing.combine_grads"}
 
@@ -49,9 +54,10 @@ def clean():
     obs.reset()
 
 
-def _sparse():
+def _sparse(distribution: str = "a2a"):
     cfg = DPMRConfig(num_features=F, max_features_per_sample=K,
-                     max_hot=MAX_HOT, learning_rate=1.0, hot_threshold=0.01)
+                     max_hot=MAX_HOT, learning_rate=1.0, hot_threshold=0.01,
+                     distribution=distribution)
     src = get_source("zipf_sparse", batch_size=B, num_batches=4,
                      num_features=F, features_per_sample=K)
     batches = [src.batch(i) for i in range(4)]
@@ -143,8 +149,7 @@ def test_on_spans_have_their_layers_names_and_parents(face):
                     "combine_grads")},
                 **{k: {v} for k, v in SEAM.items()}}
         calls = {"dpmr.step": 2, "optimizer.update": 4,
-                 "seam.sorted_run_totals": 2, "seam.owner_accumulate": 2,
-                 "seam.segment_sum_sorted": 2}
+                 "seam.sorted_run_totals": 4, "seam.segment_sum_sorted": 2}
     else:
         # remat full: each layer's attention again in the backward
         want = {"model.attention": {""}, "train.clip": {""},
@@ -209,16 +214,42 @@ def test_optimizer_rows_given_grad_and_rows_passed():
     want = torch.unique(ids[~is_hot]).numel() + \
         torch.unique(ids[is_hot]).numel()
     assert 0 < torch.unique(ids[is_hot]).numel() < want
+    cold = torch.unique(ids[~is_hot]).numel()
     obs.reset()
     with obs.enabled():
         eng.train_step(batch)
     snap = obs.snapshot()
     assert snap["device"]["optimizer.rows_given_grad"] == want
-    assert snap["counts"]["optimizer.rows_passed"] == F + MAX_HOT
+    # a2a's row path: the table's row update passes over the distinct
+    # cold rows alone (each gets a gradient: 100% useful), the hot set's
+    # dense update over its max_hot slots
+    assert snap["device"]["optimizer.rows_passed"] == cold
+    assert snap["counts"]["optimizer.rows_passed"] == MAX_HOT
+    assert snap["counts"]["optimizer.row_updates"] == 1
+    assert snap["counts"]["optimizer.dense_updates"] == 1
     obs.reset()
-    eng.train_step(batch)     # the host count counts with tracing off
-    assert obs.snapshot()["counts"]["optimizer.rows_passed"] == F + MAX_HOT
+    eng.train_step(batch)     # the host counts count with tracing off
+    assert obs.snapshot()["counts"] == {"optimizer.rows_passed": MAX_HOT,
+                                        "optimizer.row_updates": 1,
+                                        "optimizer.dense_updates": 1,
+                                        "host_reads": 3}
     assert obs.snapshot()["device"] == {}
+
+
+def test_optimizer_path_counters_on_a_dense_path():
+    """allgather has no row reduce: the table and the hot set both take
+    the dense update, which passes over every row."""
+    eng, batches = _sparse("allgather")
+    obs.reset()
+    with obs.enabled():
+        eng.train_step(batches[1])
+    counts = obs.snapshot()["counts"]
+    assert counts["optimizer.dense_updates"] == 2
+    assert "optimizer.row_updates" not in counts
+    assert counts["optimizer.rows_passed"] == F + MAX_HOT
+    assert "optimizer.rows_passed" not in obs.snapshot()["device"]
+    spans = obs.snapshot()["spans"]
+    assert spans["seam.owner_accumulate"]["dpmr.step"]["calls"] == 1
 
 
 @pytest.mark.parametrize("call", ["train_step", "fit"])
@@ -283,7 +314,7 @@ def test_launch_counts_read_the_launch_counters():
     obs.count("launch.flash_attention")
     got = ops.launch_counts()
     assert got == {"sigmoid_grad": 2, "segment_sum_sorted": 0,
-                   "select_pack": 0, "flash_attention": 1}
+                   "select_pack": 0, "flash_attention": 1, "row_update": 0}
     assert all(type(v) is int for v in got.values())
     ops.reset_launch_counts()
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
