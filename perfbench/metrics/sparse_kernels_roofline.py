@@ -2,9 +2,9 @@
 
 Numerator: the least time of the work of every top-level call of the
 seam (`kernels/ops.py`: sigmoid_grad, segment_sum_sorted,
-sorted_run_totals, owner_accumulate) over the traced batches, each
-call's bytes counted from its arguments' shapes (`roofline.
-seam_call_work`) over 3.35 TB/s. Denominator: the device time under
+sorted_run_totals, owner_accumulate, row_update) over the traced
+batches, each call's bytes counted from its arguments' shapes
+(`roofline.seam_call_work`) over 3.35 TB/s. Denominator: the device time under
 those calls' spans in the traced pass."""
 
 

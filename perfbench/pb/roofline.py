@@ -12,6 +12,7 @@ from __future__ import annotations
 HBM_BYTES_PER_S = 3.35e12     # HBM3
 F32_FLOPS = 67e12             # f32 outside the tensor cores
 BF16_TC_FLOPS = 989e12        # bf16 tensor cores, dense
+SECTOR_BYTES = 32             # the least the memory moves for a scattered 4 B
 
 
 def least_time_s(nbytes: float, nflops: float,
@@ -54,9 +55,14 @@ def seam_call_work(name: str, args: tuple, out, touched: int | None = None
     its arguments and results: each input byte read once, each output
     byte written once. `owner_accumulate` adds into its target in place:
     its output is the `touched` rows it adds to, read and written once
-    (4 B each way), not the whole target. FLOPs: sigmoid_grad's logit
-    and gradient (a multiply-add each a slot); one add for each summed
-    element of the reduces."""
+    (4 B each way), not the whole target. `row_update` reads each slot's
+    id, the id after it (which the slot compares) and its total (12 B),
+    and reads and writes each of the `touched` rows it writes in the
+    weights and, under adagrad, the accumulator: scattered rows, so a
+    32 B sector each way and each array (128 B a row under adagrad).
+    FLOPs: sigmoid_grad's logit and gradient (a multiply-add each a slot);
+    one add for each summed element of the reduces; adagrad's 6 a written
+    row (`sparse_step_work`'s count), sgd's 2."""
     if name == "sigmoid_grad":
         vals, theta, labels = args[:3]
         nbytes = _nbytes(vals) + _nbytes(theta) + _nbytes(labels) + sum(
@@ -75,6 +81,13 @@ def seam_call_work(name: str, args: tuple, out, touched: int | None = None
             raise ValueError("owner_accumulate needs the rows it touched")
         return _nbytes(req_ids) + _nbytes(grads) + 8 * touched, \
             grads.numel()
+    if name == "row_update":
+        kind, ids_s = args[0], args[3]
+        if touched is None:
+            raise ValueError("row_update needs the rows it wrote")
+        arrays = 2 if kind == "adagrad" else 1
+        return 12 * ids_s.numel() + 2 * SECTOR_BYTES * arrays * touched, \
+            (6 if kind == "adagrad" else 2) * touched
     raise KeyError(f"no work count for seam function {name!r}")
 
 

@@ -52,6 +52,9 @@ class Spans:
                 touched = None
                 if short == "owner_accumulate":
                     touched = touched_rows(torch, args[0], args[2], args[3])
+                elif short == "row_update":
+                    # the run ends name distinct ids: the rows written
+                    touched = touched_rows(torch, args[3], args[1], args[5])
                 self.work.append((short, *roofline.seam_call_work(
                     short, args, out, touched)))
                 return out

@@ -8,10 +8,11 @@ cell.
 from the root of a checkout that holds `src/repro_torch`, on a machine
 with as many CUDA cards as the cell asks for. The cells, metrics and
 bounds are `BENCHMARK.json`'s; each cell's files are found by name
-(`pb/cells.py`). The run makes its inputs on the card from `--seed`,
-sets up and warms the program (timed as `setup_s`), measures for
-`--seconds`, and checks what the program computed against the plain
-reference (`perfbench/reference/`). With `--trace 1` it measures the
+(`pb/cells.py`). The run binds its threads to the CPUs local to the
+card, makes its inputs on the card from `--seed`, sets up and warms the
+program (timed as `setup_s`), measures for `--seconds`, and checks what
+the program computed against the plain reference
+(`perfbench/reference/`). With `--trace 1` it measures the
 same window and then a profiled pass, and reports the per-layer metrics
 instead of the end-to-end ones.
 
@@ -76,9 +77,11 @@ def main(argv=None) -> None:
                          f"this machine has {n}", 3)
     print(f"[perfbench] card and power limit: {common.power_limit()}",
           flush=True)
+    host = common.pin_host(torch)
     ctx = cells.Ctx(cell=cell, seed=args.seed, seconds=args.seconds,
                     trace=bool(args.trace), t0=T0)
     out = cells.run(ctx)
+    common.log(common.host_line(host, out.get("step_p50_ms")))
     bad = common.forbidden_modules()
     if bad:
         cells.main_error(f"forbidden modules loaded: {bad}", 4)

@@ -21,6 +21,7 @@ builds (as `launch/train.py --arch` builds it), closed loop on one card.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import time
 
@@ -181,14 +182,16 @@ class Program:
             torch.cuda.synchronize()
         deadline.start()
         steps = failed = 0
+        stamps = []
         while not deadline.done(steps):
+            stamps.append(time.perf_counter())
             loss = self.one(self.batches[(CHECKED_STEPS + steps) % n])
             steps += 1
             failed += not math.isfinite(loss)
         if self.dev.type == "cuda":
             torch.cuda.synchronize()
         return {"steps": steps, "elapsed_s": deadline.elapsed(),
-                "failed": failed}
+                "failed": failed, "p50_ms": common.step_p50_ms(stamps)}
 
     def traced(self, steps: int) -> dict:
         torch = self.torch
@@ -233,7 +236,7 @@ def run(ctx):
     try:
         prog = Program(torch, ctx, dev)
         readings = prog.checked_steps()
-        setup_s = time.perf_counter() - ctx.t0
+        setup_s = common.end_setup(ctx.t0)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         win = prog.window(ctx.seconds)
@@ -244,6 +247,7 @@ def run(ctx):
         prog.free()
         del prog
     finally:
+        gc.unfreeze()
         patch.undo()
     ref = reference_readings(torch, ctx, dev)
     correct, checks = compare.judge(compare.training_numbers(readings, ref),
@@ -254,7 +258,7 @@ def run(ctx):
            "attempted": CHECKED_STEPS + win["steps"],
            "failed": win["failed"] + sum(
                not math.isfinite(x) for x in readings["losses"]),
-           "memory_peak_bytes": int(peak),
+           "memory_peak_bytes": int(peak), "step_p50_ms": win["p50_ms"],
            "e2e": {"setup_s": setup_s,
                    "dense_tokens_per_s": win["steps"] * tokens
                    / win["elapsed_s"],

@@ -28,6 +28,7 @@ must equal it (`hot_set_mismatch`, limit 0).
 """
 from __future__ import annotations
 
+import gc
 import math
 import time
 
@@ -49,7 +50,8 @@ SPANS = [("repro_torch.core.sparse", "route_build", "routing.route_build",
          ("repro_torch.kernels.ops", "sorted_run_totals",
           "seam.sorted_run_totals", True),
          ("repro_torch.kernels.ops", "owner_accumulate",
-          "seam.owner_accumulate", True)]
+          "seam.owner_accumulate", True),
+         ("repro_torch.kernels.ops", "row_update", "seam.row_update", True)]
 CHECKED_STEPS = 3
 BLOCK = 1 << 26         # rows a float64 sum over the table takes at a time
 
@@ -233,7 +235,7 @@ class Program:
         failed = sum(1 for h in hist if h["overflow"] or not
                      math.isfinite(h["loss"]))
         return {"steps": len(hist), "elapsed_s": elapsed, "failed": failed,
-                "least_s": least}
+                "least_s": least, "p50_ms": common.step_p50_ms(stamps)}
 
     def traced(self, steps: int) -> dict:
         """The traced pass, the counting pass and the host-only pass,
@@ -342,7 +344,7 @@ def run(ctx):
     try:
         prog = Program(torch, ctx, dev)
         readings = prog.checked_steps()
-        setup_s = time.perf_counter() - ctx.t0
+        setup_s = common.end_setup(ctx.t0)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         win = prog.window(ctx.seconds)
@@ -353,6 +355,7 @@ def run(ctx):
         prog.free()
         del prog
     finally:
+        gc.unfreeze()
         patch.undo()
     ref = reference_readings(torch, ctx, dev, torch.float64)
     nums = numbers(torch, readings, ref)
@@ -361,7 +364,7 @@ def run(ctx):
     out = {"correct": correct, "checks": checks,
            "attempted": CHECKED_STEPS + win["steps"],
            "failed": win["failed"] + (1 if readings["overflow"] else 0),
-           "memory_peak_bytes": peak,
+           "memory_peak_bytes": peak, "step_p50_ms": win["p50_ms"],
            "e2e": {"setup_s": setup_s,
                    "sparse_samples_per_s": win["steps"] * rows
                    / win["elapsed_s"],

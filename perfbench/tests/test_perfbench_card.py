@@ -16,7 +16,7 @@ from conftest import ROOT
 def test_a_short_run_of_the_first_cell(cuda, trace):
     got = subprocess.run(
         [sys.executable, "perfbench/run.py", "--workload",
-         "dpmr-lr-13x2e27.sgd-b4096", "--seed", str(2 ** 31 + 4242),
+         "dpmr-lr-13x2e27.sgd-b65536", "--seed", str(2 ** 31 + 4242),
          "--seconds", "2", "--trace", str(trace)],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert got.returncode == 0, got.stderr[-4000:]

@@ -12,7 +12,7 @@ import pytest
 
 from pb import cells, compare
 
-SPARSE = "dpmr-lr-13x2e27.sgd-b4096"
+SPARSE = "dpmr-lr-13x2e27.sgd-b65536"
 DENSE = "yi-6b-l4.train-4x4096"
 FAULTS = ("fault:unchanged", "fault:half_batch", "fault:altered")
 

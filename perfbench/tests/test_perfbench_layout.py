@@ -65,7 +65,7 @@ def test_a_cell_config_traffic_and_metric_added_by_files_alone(tmp_path):
                       .read_text())
     conf["num_features"] = 1 << 30
     (copy / "configs" / "dpmr-lr-2e30.json").write_text(json.dumps(conf))
-    traffic = json.loads((copy / "traffic" / "sgd-b4096.json").read_text())
+    traffic = json.loads((copy / "traffic" / "sgd-b65536.json").read_text())
     traffic["batch"] = 8192
     (copy / "traffic" / "sgd-b8192.json").write_text(json.dumps(traffic))
     (copy / "limits" / "dpmr-lr-2e30.sgd-b8192.json").write_text(
@@ -111,3 +111,14 @@ def test_metric_readers_find_nothing_and_say_so():
              "model_flops_per_step": 0, "window_steps": 3}
     for m in BENCH["per_layer"]:
         assert cells.read_metric(m["name"], empty) is None, m["name"]
+
+
+def test_dense_idle_share_reads_within_the_traced_pass():
+    """The profiler stretches a card-paced step's kernels: a traced busy
+    time a step above the untraced window's wall a step (as one card run
+    of `yi-6b-l4.train-16x1024` read) still gives a share in [0, 100]."""
+    r = {"busy_s": 1.1177464, "traced_window_s": 1.1289401,
+         "traced_steps": 2, "wall_per_step_s": 0.5512}
+    got = cells.read_metric("dense.idle_share", r)
+    assert got == pytest.approx((1 - 1.1177464 / 1.1289401) * 100)
+    assert 0 <= got <= 100

@@ -56,6 +56,52 @@ def test_seam_call_bytes_by_hand():
     assert b == 24 + 24 + 8 * 3
 
 
+def test_row_update_bytes_by_hand_and_at_the_kernel_tables_shape():
+    # ids sorted, padding last: runs 2, 5, 7 and 11 (outside [0, 10)): 3
+    # rows written, 7 slots read
+    ids = torch.tensor([2, 2, 5, 7, 7, 11, -1], dtype=torch.int32)
+    theta, acc = torch.zeros(10), torch.zeros(10)
+    args = ("adagrad", theta, acc, ids, torch.zeros(7), 0, 0.1, 1e-6)
+    b, f = roofline.seam_call_work("row_update", args, (theta, acc),
+                                   touched=3)
+    assert (b, f) == (12 * 7 + 128 * 3, 6 * 3)
+    b, _ = roofline.seam_call_work("row_update", ("sgd",) + args[1:],
+                                   (theta, acc), touched=3)
+    assert b == 12 * 7 + 64 * 3
+    # PERF.md's kernel table: b4096's 159,744 slots and 21,125 rows bound
+    # the kernel at 0.00138 ms
+    big = torch.zeros(159_744, dtype=torch.int32)
+    b, f = roofline.seam_call_work("row_update", ("adagrad", theta, acc,
+                                                  big, big, 0, 0.1, 1e-6),
+                                   None, touched=21_125)
+    assert roofline.least_time_s(b, f) * 1e3 == pytest.approx(0.00138,
+                                                              abs=5e-6)
+
+
+def test_the_count_pass_records_row_update_with_its_written_rows():
+    from pb import tracing
+
+    from repro_torch.kernels import ops
+
+    ids = torch.tensor([2, 2, 5, 7, 7, 11, -1], dtype=torch.int32)
+    theta, acc = torch.zeros(10), torch.zeros(10)
+    spans = [s for s in tracing_spans() if s[1] == "row_update"]
+    assert spans == [("repro_torch.kernels.ops", "row_update",
+                      "seam.row_update", True)]
+    with tracing.Spans(torch, spans, mode="count") as counting:
+        ops.row_update("adagrad", theta, acc, ids, torch.ones(7), 0, 0.5,
+                       1e-6)
+    assert counting.work == [("row_update", 12 * 7 + 128 * 3, 6 * 3)]
+    assert int((theta != 0).sum()) == 3
+
+
+def tracing_spans():
+    from pb import cells
+
+    return cells.load_module(PERFBENCH / "runners" / "dpmr_sgd.py",
+                             "pb_test_runner").SPANS
+
+
 def test_touched_rows_counts_distinct_ids_in_the_block():
     from pb import tracing
 
@@ -167,7 +213,7 @@ def test_run_refuses_without_a_card_or_a_program(tmp_path):
     import sys
 
     cmd = [sys.executable, "perfbench/run.py", "--workload",
-           "dpmr-lr-13x2e27.sgd-b4096", "--seed", str(2 ** 31 + 1),
+           "dpmr-lr-13x2e27.sgd-b65536", "--seed", str(2 ** 31 + 1),
            "--seconds", "1", "--trace", "0"]
     if not torch.cuda.is_available():
         got = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
